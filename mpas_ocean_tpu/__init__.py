@@ -1,136 +1,48 @@
-"""mpas_ocean_tpu — a TPU-native unstructured-mesh (TRiSK) shallow-water ocean
-framework built on JAX / XLA / Pallas.
+"""The package's former name, kept as an alias of ``mpas_ocean``.
 
-Brand-new design with the capabilities of the reference Julia package MOKA
-(jlk9/MPAS-Ocean.jl): TRiSK C-grid discrete operators on Voronoi/Delaunay
-meshes, layer-thickness + normal-velocity prognostic integration, YAML
-config / ESMF-style clock, NetCDF I/O, and reverse-mode differentiation of
-the whole rollout — re-architected for TPU:
-
-  * mesh & state are immutable pytrees of padded, 0-based, masked arrays
-  * operators are pure jnp functions fused by XLA under one `jit`
-  * the time loop is a `lax.scan` (no host round-trips per step)
-  * adjoints come from `jax.grad` through the scan (vs Enzyme in reference)
-  * multi-device runs use `shard_map` domain decomposition with halo exchange
-    over ICI, not MPI
-
-Float64 note: the reference is Float64 throughout (its arrays come from
-NetCDF doubles). TPUs emulate f64, so precision is a first-class, explicit
-parameter here: every constructor takes a ``dtype``; tests validate f64 on
-CPU and the benchmark path runs f32 on TPU. We enable the x64 flag at import
-(unless MOT_DISABLE_X64 is set) so f64 is *available*; individual arrays keep
-whatever dtype they were built with.
+Importing this package, or any module under it, gives the very module
+objects of ``mpas_ocean``: ``<this>.forward.driver is
+mpas_ocean.forward.driver``. New code imports ``mpas_ocean``.
 """
 
-import os as _os
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-import jax as _jax
+import mpas_ocean
 
-if not _os.environ.get("MOT_DISABLE_X64"):
-    _jax.config.update("jax_enable_x64", True)
+_TARGET = "mpas_ocean"
 
-from .constants import GRAVITY
-from .mesh import (
-    Edges,
-    HorzMesh,
-    Mesh,
-    PrimaryCells,
-    DualCells,
-    VerticalMesh,
-    planar_hex_mesh,
-)
-from .infra.config import ConfigRead, GlobalConfig, yaml_config
-from .infra.time_manager import (
-    Clock,
-    OneTimeAlarm,
-    PeriodicAlarm,
-    mpas_create_clock,
-)
-from .ops import (
-    curl_on_vertex,
-    divergence_on_cell,
-    gradient_on_edge,
-    interpolate_cell_to_edge,
-    interpolate_cell_to_vertex,
-    interpolate_vertex_to_edge,
-    tangential_reconstruction,
-)
-from .models.shallow_water import (
-    DiagnosticVars,
-    PrognosticVars,
-    TendencyVars,
-    compute_diagnostics,
-    compute_layer_thickness_tendency,
-    compute_normal_velocity_tendency,
-    kinetic_energy_on_cell,
-    potential_vorticity_on_vertex,
-    pv_flux_tendency,
-)
-from .models.matrix_model import MatrixModel, matrix_run_loop, matrix_step
-from .models.tracers import make_tracers, total_tracer_content, tracer_tendency
-from .models.stratification import (
-    Stratification,
-    baroclinic_wave_speeds,
-    make_stratification,
-    montgomery_potential,
-)
-from .models.forcing import Forcing, forcing_tendency, make_forcing
-from .forward.time_integration import (
-    ForwardBackward,
-    ForwardEuler,
-    RungeKutta4,
-    ocn_timestep,
-)
-from .forward.run_loop import ocn_run_loop, ocn_run_loop_objective
 
-__all__ = [
-    "GRAVITY",
-    "Edges",
-    "HorzMesh",
-    "Mesh",
-    "PrimaryCells",
-    "DualCells",
-    "VerticalMesh",
-    "planar_hex_mesh",
-    "ConfigRead",
-    "GlobalConfig",
-    "yaml_config",
-    "Clock",
-    "OneTimeAlarm",
-    "PeriodicAlarm",
-    "mpas_create_clock",
-    "curl_on_vertex",
-    "divergence_on_cell",
-    "gradient_on_edge",
-    "interpolate_cell_to_edge",
-    "interpolate_cell_to_vertex",
-    "interpolate_vertex_to_edge",
-    "tangential_reconstruction",
-    "DiagnosticVars",
-    "PrognosticVars",
-    "TendencyVars",
-    "compute_diagnostics",
-    "compute_layer_thickness_tendency",
-    "compute_normal_velocity_tendency",
-    "kinetic_energy_on_cell",
-    "potential_vorticity_on_vertex",
-    "pv_flux_tendency",
-    "MatrixModel",
-    "make_tracers",
-    "Stratification",
-    "baroclinic_wave_speeds",
-    "make_stratification",
-    "montgomery_potential",
-    "total_tracer_content",
-    "tracer_tendency",
-    "matrix_run_loop",
-    "matrix_step",
-    "ForwardBackward",
-    "ForwardEuler",
-    "RungeKutta4",
-    "ocn_timestep",
-    "ocn_run_loop",
-    "ocn_run_loop_objective",
-]
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<this>.x.y`` to the already importable ``mpas_ocean.x.y``."""
 
-__version__ = "0.1.0"
+    def __init__(self, prefix):
+        self.prefix = prefix + "."
+        self.specs = {}
+
+    def find_spec(self, name, path=None, target=None):
+        if not name.startswith(self.prefix):
+            return None
+        return importlib.util.spec_from_loader(name, self)
+
+    def create_module(self, spec):
+        module = importlib.import_module(
+            _TARGET + "." + spec.name[len(self.prefix):])
+        self.specs[module.__name__] = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # the import system stamped the alias spec on the shared module;
+        # give it back its own
+        module.__spec__ = self.specs.pop(module.__name__)
+
+    def get_code(self, name):
+        # `python -m <this>.forward.driver` runs mpas_ocean's module
+        real = _TARGET + "." + name[len(self.prefix):]
+        return importlib.util.find_spec(real).loader.get_code(real)
+
+
+sys.meta_path.insert(0, _AliasFinder(__name__))
+sys.modules[__name__] = mpas_ocean

@@ -1,11 +1,11 @@
-// Native mesh-preprocessing kernels for mpas_ocean_tpu.
+// Native mesh-preprocessing kernels for mpas_ocean.
 //
 // Host-side setup paths that are latency-sensitive at production mesh
 // scales (millions of cells): breadth-first graph partitioning and reverse
 // Cuthill-McKee reordering over the cell adjacency graph (CSR form).
 // Exposed as a plain C ABI consumed via ctypes (native/__init__.py); a
 // NumPy fallback with identical semantics lives in
-// mpas_ocean_tpu/parallel/graph.py.
+// mpas_ocean/parallel/graph.py.
 //
 // Build: g++ -O3 -shared -fPIC -o libmeshpre.so mesh_preprocess.cpp
 

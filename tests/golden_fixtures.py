@@ -3,8 +3,7 @@
 The reference pins operator error norms to 1e-8 golden values on ITS mesh
 instance (reference: test/ocn/test_Operators.jl:52-91); this repo's meshes
 are generated, so tests/test_operators.py can only gate magnitudes (rel
-5e-2). These fixtures close the gap the round-1 VERDICT flagged (weak item
-4): exact f64 CPU values computed from the IN-REPO meshes, pinned at
+5e-2). These fixtures close that gap: exact f64 CPU values computed from the IN-REPO meshes, pinned at
 rtol 1e-13, so a refactor that drifts results by even 1e-10 relative is
 caught. Regenerate deliberately with `python tests/golden_fixtures.py`
 after an INTENDED numerics change.
@@ -32,22 +31,22 @@ def compute_golden() -> dict:
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-    from mpas_ocean_tpu.forward.time_integration import RungeKutta4
-    from mpas_ocean_tpu.mesh import planar_hex_mesh
-    from mpas_ocean_tpu.mesh.mesh import Mesh
-    from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-    from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-    from mpas_ocean_tpu.ops import (
+    from mpas_ocean.forward.run_loop import ocn_run_loop
+    from mpas_ocean.forward.time_integration import RungeKutta4
+    from mpas_ocean.mesh import planar_hex_mesh
+    from mpas_ocean.mesh.mesh import Mesh
+    from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+    from mpas_ocean.models.shallow_water import PrognosticVars
+    from mpas_ocean.ops import (
         curl_on_vertex,
         divergence_on_cell,
         gradient_on_edge,
     )
-    from mpas_ocean_tpu.utils.errors import error_measures
-    from mpas_ocean_tpu.verification.inertial_gravity_wave import (
+    from mpas_ocean.utils.errors import error_measures
+    from mpas_ocean.verification.inertial_gravity_wave import (
         InertialGravityWave,
     )
-    from mpas_ocean_tpu.verification.manufactured import PlanarTestFields
+    from mpas_ocean.verification.manufactured import PlanarTestFields
 
     out: dict = {}
 

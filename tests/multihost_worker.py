@@ -28,7 +28,7 @@ def main():
     pid, port = int(sys.argv[1]), sys.argv[2]
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-    from mpas_ocean_tpu.parallel.distributed import (
+    from mpas_ocean.parallel.distributed import (
         hybrid_device_mesh,
         init_distributed,
     )
@@ -41,12 +41,12 @@ def main():
 
     import jax.numpy as jnp
 
-    from mpas_ocean_tpu.mesh import planar_hex_mesh
-    from mpas_ocean_tpu.mesh.mesh import Mesh
-    from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-    from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-    from mpas_ocean_tpu.structured import ShardedStructuredModel, StructuredModel
-    from mpas_ocean_tpu.structured.model import structured_run_loop
+    from mpas_ocean.mesh import planar_hex_mesh
+    from mpas_ocean.mesh.mesh import Mesh
+    from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+    from mpas_ocean.models.shallow_water import PrognosticVars
+    from mpas_ocean.structured import ShardedStructuredModel, StructuredModel
+    from mpas_ocean.structured.model import structured_run_loop
 
     nx = ny = 16
     horz = planar_hex_mesh(nx, ny, 1000.0, f0=1e-4)
@@ -81,9 +81,8 @@ def main():
     assert rel < 1e-12, f"checksum mismatch: {chk} vs {want} (rel {rel})"
 
     # communication-avoiding superstep across BOTH processes: the 2q-halo
-    # ppermutes cross the dcn boundary (gloo on CPU), the per-device
-    # compute runs the fused tile kernel (interpret mode here)
-    out2 = ssm.run_pallas(ssm.scatter(st), 10.0, 4, q=2)
+    # ppermutes cross the process boundary (gloo on CPU)
+    out2 = ssm.run_superstep(ssm.scatter(st), 10.0, 4, q=2)
     chk2 = float(ssm.checksum(out2))
     ref2 = structured_run_loop(st, sm.struct_mesh, 10.0, 4)
     want2 = float(

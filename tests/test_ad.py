@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.forward.run_loop import ocn_run_loop_objective
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-from mpas_ocean_tpu.ops import divergence_on_cell, gradient_on_edge
-from mpas_ocean_tpu.verification.inertial_gravity_wave import InertialGravityWave
+from mpas_ocean.forward.run_loop import ocn_run_loop_objective
+from mpas_ocean.models.shallow_water import PrognosticVars
+from mpas_ocean.ops import divergence_on_cell, gradient_on_edge
+from mpas_ocean.verification.inertial_gravity_wave import InertialGravityWave
 
 
 def _directional_fd(fn, x, v, eps):
@@ -108,7 +108,7 @@ def test_end2end_gradient_vs_fd(igw_mesh, igw_small):
 
 
 def test_gradient_through_rk4(igw_mesh, igw_small):
-    from mpas_ocean_tpu.forward.time_integration import RungeKutta4
+    from mpas_ocean.forward.time_integration import RungeKutta4
 
     g = jax.grad(
         lambda p: ocn_run_loop_objective(p, igw_mesh, 600.0, 3, RungeKutta4)

@@ -1,10 +1,9 @@
 """Pin ShardedStructuredModel.step_stats to the IMPLEMENTATION.
 
 step_stats feeds the deterministic structural scaling artifact
-(tools/scaling.py, bench scaling_virtual8.structural) that the bench uses
-as a regression sentinel and for the superstep breakeven-latency
-attribution — so its collective counts must describe the code, not a
-model of it. These tests count the ppermute primitives actually traced
+(tools/scaling.py) used as a regression sentinel and for the superstep
+breakeven-latency attribution — so its collective counts must describe the
+code, not a model of it. These tests count the ppermute primitives actually traced
 into the per-step scan body for every (nonlinear, fb, tracers) slab
 configuration and assert 2 * collective_pairs_per_step matches (each
 halo exchange pair is one ppermute per direction, _with_halo).
@@ -15,12 +14,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.mesh import planar_hex_mesh
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-from mpas_ocean_tpu.structured import StructuredModel
-from mpas_ocean_tpu.structured.sharded import ShardedStructuredModel
+from mpas_ocean.mesh import planar_hex_mesh
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.shallow_water import PrognosticVars
+from mpas_ocean.structured import StructuredModel
+from mpas_ocean.structured.sharded import ShardedStructuredModel
 
 NX = NY = 16
 K = 2
@@ -86,12 +85,12 @@ def _count_ppermute(jaxpr):
     return n
 
 
-def _scan_body_ppermutes(ssm, local, dt, nonlinear, fb, n_steps=3):
+def _scan_body_ppermutes(ssm, local, dt, nonlinear, fb, n_steps=3, q=None):
     args = ssm._run_prep(local, nonlinear, None, None)
 
     def f(loc):
         return ssm._run_jit.__wrapped__(
-            ssm, loc, *args, dt, n_steps, nonlinear, 0.0, 1.0, False, fb
+            ssm, loc, *args, dt, n_steps, nonlinear, 0.0, 1.0, False, fb, q
         )
 
     closed = jax.make_jaxpr(f)(local)
@@ -128,3 +127,28 @@ def test_fb_single_exchange_per_field(setup):
     n_fields = 3
     traced = _scan_body_ppermutes(ssm, local, 10.0, False, True)
     assert traced == 2 * n_fields
+
+
+@pytest.mark.parametrize("nonlinear,fb,q", [
+    (False, False, 4), (True, False, 2), (False, True, 2), (True, True, 1),
+])
+def test_superstep_stats_match_traced_body(setup, nonlinear, fb, q):
+    """The superstep body exchanges each field ONCE per q steps (reach*q
+    halo rows in one ppermute pair per field) — step_stats(path=
+    'superstep') must say n_fields/q pairs per step, and its redundant
+    compute must be the shrinking window's reach*(q-1)/rows."""
+    from mpas_ocean.structured.sharded import _reach
+
+    sm, _, st = setup
+    ssm = ShardedStructuredModel(sm.struct_mesh, devices=jax.devices()[:2])
+    local = ssm.scatter(st)
+    traced = _scan_body_ppermutes(ssm, local, 10.0, nonlinear, fb,
+                                  n_steps=4, q=q)
+    stats = ssm.step_stats(K, path="superstep", q=q, nonlinear=nonlinear,
+                           fb=fb)
+    assert traced == 2 * stats["collective_pairs_per_step"] * q
+    assert stats["halo_rows"] == _reach(nonlinear, fb) * q
+    assert stats["redundant_compute_frac"] == (
+        _reach(nonlinear, fb) * (q - 1) / ssm.rows
+    )
+

@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-from mpas_ocean_tpu.models.shallow_water import (
+from mpas_ocean.forward.run_loop import ocn_run_loop
+from mpas_ocean.models.shallow_water import (
     PrognosticVars,
     del2_tendency,
     kinetic_energy_on_cell,
 )
-from mpas_ocean_tpu.verification.manufactured import PlanarTestFields
+from mpas_ocean.verification.manufactured import PlanarTestFields
 
 
 def test_del2_of_curl_free_field_converges():
@@ -19,9 +19,9 @@ def test_del2_of_curl_free_field_converges():
     first-order pointwise on hex meshes (the reference's own curl golden is
     16% at 48x48, test_Operators.jl:90-91), so the full-field case is
     checked for dissipativity instead (next test)."""
-    from mpas_ocean_tpu.mesh import planar_hex_mesh
-    from mpas_ocean_tpu.mesh.mesh import Mesh
-    from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
+    from mpas_ocean.mesh import planar_hex_mesh
+    from mpas_ocean.mesh.mesh import Mesh
+    from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
 
     errs = []
     for n in (16, 32):
@@ -34,7 +34,7 @@ def test_del2_of_curl_free_field_converges():
         exact = -(kx**2 + ky**2) * u[:, 0]
 
         # the grad(div) branch alone is cleanly second order
-        from mpas_ocean_tpu.ops import divergence_on_cell, gradient_on_edge
+        from mpas_ocean.ops import divergence_on_cell, gradient_on_edge
 
         D = divergence_on_cell(jnp.asarray(u), mesh)
         gd = np.asarray(gradient_on_edge(D, mesh))[:, 0]
@@ -83,9 +83,9 @@ def test_kinetic_energy_uniform_flow(mesh16):
 
 
 def test_compare_tool(tmp_path):
-    from mpas_ocean_tpu.forward.driver import ocn_run
-    from mpas_ocean_tpu.tools import make_igw_case
-    from mpas_ocean_tpu.tools.compare import compare_output
+    from mpas_ocean.forward.driver import ocn_run
+    from mpas_ocean.tools import make_igw_case
+    from mpas_ocean.tools.compare import compare_output
 
     cfg = make_igw_case(tmp_path, nx=16, resolution_km=200.0, duration_seconds=2000)
     ocn_run(cfg)

@@ -12,20 +12,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.mesh import planar_hex_mesh
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.forcing import RHO0, forcing_tendency, make_forcing
-from mpas_ocean_tpu.models.shallow_water import (
+from mpas_ocean.mesh import planar_hex_mesh
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.forcing import RHO0, forcing_tendency, make_forcing
+from mpas_ocean.models.shallow_water import (
     PrognosticVars,
     compute_diagnostics,
 )
-from mpas_ocean_tpu.forward.time_integration import (
+from mpas_ocean.forward.time_integration import (
     ForwardEuler,
     RungeKutta4,
     ocn_timestep,
 )
-from mpas_ocean_tpu.forward.run_loop import ocn_run_loop, ocn_run_loop_objective
+from mpas_ocean.forward.run_loop import ocn_run_loop, ocn_run_loop_objective
 
 NX = NY = 16
 K = 2
@@ -154,11 +154,11 @@ def test_rayleigh_decay_exact_recurrence():
 
 
 def test_forcing_path_equivalence(setup):
-    """Gather, matrix/MXU and structured-roll paths agree at f64 roundoff
+    """Gather, matrix/BSR and structured-roll paths agree at f64 roundoff
     with the full forcing stack on (the architecture invariant extends to
     every new physics term)."""
-    from mpas_ocean_tpu.models.matrix_model import MatrixModel, matrix_run_loop
-    from mpas_ocean_tpu.structured import StructuredModel
+    from mpas_ocean.models.matrix_model import MatrixModel, matrix_run_loop
+    from mpas_ocean.structured import StructuredModel
 
     mesh, prog = setup
     forcing = _full_forcing(mesh)
@@ -265,8 +265,8 @@ def test_forcing_respects_bathymetry_masks():
 def test_driver_forcing_config(tmp_path):
     """The namelist `forcing` section drives the whole config->driver->
     rollout chain, and the result differs from the unforced run."""
-    from mpas_ocean_tpu.forward.driver import ocn_run
-    from mpas_ocean_tpu.tools.cases import make_igw_case
+    from mpas_ocean.forward.driver import ocn_run
+    from mpas_ocean.tools.cases import make_igw_case
 
     d_f = tmp_path / "forced"
     d_0 = tmp_path / "plain"
@@ -299,7 +299,7 @@ def test_forcing_sharded_unstructured(setup, method_nl):
     and nonlinear (derived-field exchange), forcing included. Overlap
     mini-stepping is bypassed with forcing on (the mini mesh carries no
     forcing fields) — the result must be identical either way."""
-    from mpas_ocean_tpu.parallel import ShardedModel
+    from mpas_ocean.parallel import ShardedModel
 
     kind, nonlinear = method_nl
     method = RungeKutta4 if kind == "rk4" else ForwardEuler
@@ -330,9 +330,9 @@ def test_forcing_sharded_structured(setup, nonlinear):
     """The row-slab structured sharded path with forcing matches the global
     structured rollout at f64 roundoff (linear overlap schedule and the
     nonlinear derived-field rounds both carry the forcing terms)."""
-    from mpas_ocean_tpu.structured import StructuredModel
-    from mpas_ocean_tpu.structured.model import structured_run_loop
-    from mpas_ocean_tpu.structured.sharded import ShardedStructuredModel
+    from mpas_ocean.structured import StructuredModel
+    from mpas_ocean.structured.model import structured_run_loop
+    from mpas_ocean.structured.sharded import ShardedStructuredModel
 
     mesh, prog = setup
     forcing = _full_forcing(mesh)
@@ -358,65 +358,13 @@ def test_forcing_sharded_structured(setup, nonlinear):
     )
 
 
-@pytest.mark.parametrize("kernel", ["fused", "tiled", "tiled_q2"])
-def test_forcing_pallas_kernels(setup, kernel):
-    """Momentum forcing fused INTO the Pallas kernels (interpret mode):
-    fused whole-rollout and tiled (q=1 and temporal-blocked q=2) agree
-    with the forced roll model at f64 roundoff. The level masks travel as
-    compressed int32 index planes (pallas_model._forcing_setup) whose
-    in-kernel one-hot expansion is bitwise-identical to the dense masks."""
-    from mpas_ocean_tpu.structured import StructuredModel
-    from mpas_ocean_tpu.structured.model import structured_run_loop
-    from mpas_ocean_tpu.structured.pallas_model import (
-        pallas_run_loop,
-        pallas_tiled_run_loop,
-    )
-
-    mesh, prog = setup
-    forcing = _full_forcing(mesh)
-    sm = StructuredModel(mesh, NX, NY)
-    sf = sm.to_struct_forcing(forcing)
-    st = sm.to_struct(prog)
-    dt, n = 30.0, 6
-    ref = structured_run_loop(st, sm.struct_mesh, dt, n, forcing=sf)
-    if kernel == "fused":
-        out = pallas_run_loop(
-            st, sm.struct_mesh, dt, n, interpret=True, forcing=sf
-        )
-    elif kernel == "tiled":
-        out = pallas_tiled_run_loop(
-            st, sm.struct_mesh, dt, n, interpret=True, row_tile=8, forcing=sf
-        )
-    else:
-        out = pallas_tiled_run_loop(
-            st, sm.struct_mesh, dt, n, interpret=True, row_tile=8, q=2,
-            forcing=sf,
-        )
-    np.testing.assert_allclose(
-        np.asarray(out.normal_velocity),
-        np.asarray(ref.normal_velocity),
-        rtol=0,
-        atol=1e-12,
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.ssh), np.asarray(ref.ssh), rtol=0, atol=1e-11
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.layer_thickness),
-        np.asarray(ref.layer_thickness),
-        rtol=0,
-        atol=1e-11,
-    )
-
-
 def test_forcing_pallas_rollout_diff_grad(setup):
-    """pallas_rollout_diff with forcing: gradients wrt the STATE and the
+    """structured_rollout_diff with forcing: gradients wrt the STATE and the
     FORCING (wind field + drag/Rayleigh coefficients) match jax.grad of
-    the roll rollout — the Forcing cotangent rides the checkpointed-roll
-    reverse exactly."""
-    from mpas_ocean_tpu.structured import StructuredModel
-    from mpas_ocean_tpu.structured.model import structured_run_loop
-    from mpas_ocean_tpu.structured.pallas_model import pallas_rollout_diff
+    the un-checkpointed roll rollout — the Forcing cotangent rides the
+    checkpointed-roll reverse exactly."""
+    from mpas_ocean.structured import StructuredModel, structured_rollout_diff
+    from mpas_ocean.structured.model import structured_run_loop
 
     mesh, prog = setup
     forcing = _full_forcing(mesh)
@@ -426,8 +374,8 @@ def test_forcing_pallas_rollout_diff_grad(setup):
     dt, n = 30.0, 5
 
     def obj_p(s, f):
-        o = pallas_rollout_diff(s, sm.struct_mesh, dt, n, False, 0.0, 1.0,
-                                None, f)
+        o = structured_rollout_diff(s, sm.struct_mesh, dt, n, False, 0.0,
+                                    1.0, None, f)
         return jnp.sum(o.ssh**2)
 
     def obj_r(s, f):
@@ -451,117 +399,3 @@ def test_forcing_pallas_rollout_diff_grad(setup):
             np.asarray(getattr(gr_f, name)),
             rtol=1e-12, atol=0,
         )
-
-
-def test_forcing_pallas_masked_channel():
-    """Forcing + wall masks compose in the Pallas kernels: a culled
-    channel lattice with wind/drag agrees with the forced roll model, and
-    dead edges stay exactly zero."""
-    from mpas_ocean_tpu.mesh.cull import cull_cells
-    from mpas_ocean_tpu.structured import StructuredModel
-    from mpas_ocean_tpu.structured.model import structured_run_loop
-    from mpas_ocean_tpu.structured.pallas_model import pallas_run_loop
-
-    nx = ny = 8
-    dc = 5000.0
-    horz = planar_hex_mesh(nx, ny, dc, f0=1e-4)
-    yc = np.asarray(horz.cells.y)
-    keep = (yc > 0.5 * dc) & (yc < yc.max() - 0.5 * dc)
-    chan = cull_cells(horz, keep)
-    k = 2
-    vert = make_vertical_mesh(
-        chan, n_vert_levels=k,
-        resting_thickness=np.full((chan.n_cells, k), H0),
-    )
-    mesh = Mesh(horz=chan, vert=vert).to_device()
-    sm = StructuredModel(mesh, nx, ny, parent_horz=horz, keep_cells=keep)
-    rng = np.random.default_rng(5)
-    h = np.full((chan.n_cells, k), H0) + 0.02 * rng.normal(
-        size=(chan.n_cells, k)
-    )
-    u = 0.02 * rng.normal(size=(chan.n_edges, k))
-    prog = PrognosticVars(
-        ssh=jnp.asarray(h.sum(1) - np.asarray(vert.resting_thickness_sum)),
-        layer_thickness=jnp.asarray(h),
-        normal_velocity=jnp.asarray(u),
-    )
-    forcing = make_forcing(
-        mesh, wind_stress_zonal=0.08, bottom_drag_linear=1e-5,
-        bottom_drag_quadratic=1e-3, rayleigh=1e-6,
-    )
-    sf = sm.to_struct_forcing(forcing)
-    st = sm.to_struct(prog)
-    dt, n = 20.0, 5
-    ref = structured_run_loop(st, sm.struct_mesh, dt, n, forcing=sf)
-    out = pallas_run_loop(st, sm.struct_mesh, dt, n, interpret=True,
-                          forcing=sf)
-    np.testing.assert_allclose(
-        np.asarray(out.normal_velocity),
-        np.asarray(ref.normal_velocity),
-        rtol=0, atol=1e-12,
-    )
-    ny2, snx = sm.struct_mesh.ny2, sm.struct_mesh.nx
-    dead = np.asarray(sm.struct_mesh.edge_mask).reshape(6, ny2, snx) == 0
-    uo = np.asarray(out.normal_velocity).reshape(6, ny2, snx, -1)
-    assert np.all(uo[dead] == 0.0)
-
-
-def test_forcing_auto_run_loop_routes_forced(setup):
-    """structured_auto_run_loop accepts forcing on every branch (here the
-    CPU/interpret roll branch) and matches the explicit roll call."""
-    from mpas_ocean_tpu.structured import StructuredModel
-    from mpas_ocean_tpu.structured.model import structured_run_loop
-    from mpas_ocean_tpu.structured.pallas_model import structured_auto_run_loop
-
-    mesh, prog = setup
-    forcing = _full_forcing(mesh)
-    sm = StructuredModel(mesh, NX, NY)
-    sf = sm.to_struct_forcing(forcing)
-    st = sm.to_struct(prog)
-    out = structured_auto_run_loop(st, sm.struct_mesh, 30.0, 4, forcing=sf)
-    ref = structured_run_loop(st, sm.struct_mesh, 30.0, 4, forcing=sf)
-    np.testing.assert_allclose(
-        np.asarray(out.normal_velocity), np.asarray(ref.normal_velocity),
-        rtol=0, atol=0,
-    )
-
-
-def test_traced_non_onehot_mask_nan_poisons(setup):
-    """_forcing_setup's traced branch (jit/grad calling convention) cannot
-    raise like its concrete branch when a level mask is not one-hot — it
-    must NaN-poison the wind planes instead of silently compressing the
-    mask lossily and returning wrong-but-plausible physics. A valid
-    one-hot mask through the same traced branch stays finite and encodes
-    identically to the concrete branch."""
-    import dataclasses
-
-    from mpas_ocean_tpu.structured import StructuredModel
-    from mpas_ocean_tpu.structured.pallas_model import _forcing_setup
-
-    mesh, prog = setup
-    sm = StructuredModel(mesh, NX, NY)
-    sf = sm.to_struct_forcing(_full_forcing(mesh))
-    ny2, nx = sm.struct_mesh.ny2, sm.struct_mesh.nx
-    dtype = np.dtype(np.float64)
-
-    setup_jit = jax.jit(
-        lambda f: _forcing_setup(f, ny2, nx, dtype)
-    )
-    # valid one-hot masks: traced branch must agree with the concrete one
-    wind_t, fidx_t = setup_jit(sf)
-    wind_c, fidx_c = _forcing_setup(sf, ny2, nx, dtype)
-    assert np.isfinite(np.asarray(wind_t)).all()
-    np.testing.assert_array_equal(np.asarray(wind_t), np.asarray(wind_c))
-    np.testing.assert_array_equal(np.asarray(fidx_t), np.asarray(fidx_c))
-
-    # two active levels on one edge: concrete branch raises ...
-    bad_top = np.asarray(sf.top_mask).copy()
-    flat = bad_top.reshape(-1, bad_top.shape[-1])
-    live = np.flatnonzero(flat.sum(axis=1) == 1)[0]
-    flat[live] = 1.0
-    bad = dataclasses.replace(sf, top_mask=jnp.asarray(bad_top))
-    with pytest.raises(NotImplementedError, match="one-hot"):
-        _forcing_setup(bad, ny2, nx, dtype)
-    # ... and the traced branch poisons every wind value with NaN
-    wind_b, _ = setup_jit(bad)
-    assert np.isnan(np.asarray(wind_b)).all()

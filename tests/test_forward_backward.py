@@ -10,14 +10,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-from mpas_ocean_tpu.forward.time_integration import ForwardBackward
-from mpas_ocean_tpu.mesh import planar_hex_mesh
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars, update_ssh
-from mpas_ocean_tpu.models.stratification import make_stratification
-from mpas_ocean_tpu.models.tracers import make_tracers
+from mpas_ocean.forward.run_loop import ocn_run_loop
+from mpas_ocean.forward.time_integration import ForwardBackward
+from mpas_ocean.mesh import planar_hex_mesh
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.shallow_water import PrognosticVars, update_ssh
+from mpas_ocean.models.stratification import make_stratification
+from mpas_ocean.models.tracers import make_tracers
 
 K = 2
 DT = 10.0
@@ -45,12 +45,11 @@ def fb_setup(hex16):
 
 @pytest.mark.parametrize("nonlinear", [False, True])
 def test_fb_path_parity(fb_setup, nonlinear):
-    """All five execution paths compute the same forward-backward physics
+    """All four execution paths compute the same forward-backward physics
     (with tracers + stratification in play) at f64 roundoff."""
-    from mpas_ocean_tpu.models.matrix_model import MatrixModel, matrix_run_loop
-    from mpas_ocean_tpu.parallel.shard_step import ShardedModel
-    from mpas_ocean_tpu.structured.model import StructuredModel
-    from mpas_ocean_tpu.structured.pallas_model import pallas_run_loop
+    from mpas_ocean.models.matrix_model import MatrixModel, matrix_run_loop
+    from mpas_ocean.parallel.shard_step import ShardedModel
+    from mpas_ocean.structured.model import StructuredModel
 
     mesh, prog, strat = fb_setup
     kw = dict(nonlinear=nonlinear, tracer_kappa=5.0, strat=strat)
@@ -60,15 +59,11 @@ def test_fb_path_parity(fb_setup, nonlinear):
     sm = StructuredModel(mesh, 16, 16)
     st = sm.to_struct(prog)
     c = sm.from_struct(sm.run(st, DT, 8, fb=True, **kw))
-    d = sm.from_struct(
-        pallas_run_loop(st, sm.struct_mesh, DT, 8, interpret=True, fb=True,
-                        **kw)
-    )
     smd = ShardedModel(mesh, devices=jax.devices())
     e = smd.gather(
         smd.run(smd.scatter(prog), DT, 8, method=ForwardBackward, **kw)
     )
-    for out in (b, c, d, e):
+    for out in (b, c, e):
         np.testing.assert_allclose(
             np.asarray(a.normal_velocity), np.asarray(out.normal_velocity),
             atol=1e-13,
@@ -104,7 +99,7 @@ def test_fb_gravity_wave_stability():
 
 
 def test_fb_conserves_volume_and_tracer_content(fb_setup):
-    from mpas_ocean_tpu.models.tracers import total_tracer_content
+    from mpas_ocean.models.tracers import total_tracer_content
 
     mesh, prog, _ = fb_setup
     area = mesh.cells.area_cell
@@ -139,9 +134,9 @@ def test_fb_gradient(fb_setup):
 
 def test_fb_driver_config(tmp_path):
     """config_time_integrator: ForwardBackward runs end to end."""
-    from mpas_ocean_tpu.forward.driver import ocn_run
-    from mpas_ocean_tpu.forward.time_integration import ForwardBackward as FB
-    from mpas_ocean_tpu.tools import make_igw_case
+    from mpas_ocean.forward.driver import ocn_run
+    from mpas_ocean.forward.time_integration import ForwardBackward as FB
+    from mpas_ocean.tools import make_igw_case
 
     case = tmp_path / "fb_case"
     cfg = make_igw_case(case, nx=16, resolution_km=200.0,

@@ -4,7 +4,7 @@ graph partitions in the sharded model (including on the sphere)."""
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.parallel.graph import (
+from mpas_ocean.parallel.graph import (
     _greedy_python,
     _rcm_python,
     cell_adjacency_csr,
@@ -64,13 +64,13 @@ def test_graph_partition_on_sphere():
     import jax
     import jax.numpy as jnp
 
-    from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-    from mpas_ocean_tpu.mesh.mesh import Mesh
-    from mpas_ocean_tpu.mesh.sphere import spherical_mesh
-    from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-    from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-    from mpas_ocean_tpu.parallel import ShardedModel, build_partition
-    from mpas_ocean_tpu.parallel.partition import partition_cells
+    from mpas_ocean.forward.run_loop import ocn_run_loop
+    from mpas_ocean.mesh.mesh import Mesh
+    from mpas_ocean.mesh.sphere import spherical_mesh
+    from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+    from mpas_ocean.models.shallow_water import PrognosticVars
+    from mpas_ocean.parallel import ShardedModel, build_partition
+    from mpas_ocean.parallel.partition import partition_cells
 
     horz = spherical_mesh(6)  # 362 cells
     vert = make_vertical_mesh(

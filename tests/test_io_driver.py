@@ -5,13 +5,13 @@ import os
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.forward.driver import ocn_run
-from mpas_ocean_tpu.forward.init import ocn_init, plan_steps
-from mpas_ocean_tpu.infra.netcdf import read_netcdf
-from mpas_ocean_tpu.mesh.io import read_mpas_mesh, save_mpas_mesh
-from mpas_ocean_tpu.ops import tangential_reconstruction
-from mpas_ocean_tpu.tools import make_igw_case
-from mpas_ocean_tpu.verification.inertial_gravity_wave import InertialGravityWave
+from mpas_ocean.forward.driver import ocn_run
+from mpas_ocean.forward.init import ocn_init, plan_steps
+from mpas_ocean.infra.netcdf import read_netcdf
+from mpas_ocean.mesh.io import read_mpas_mesh, save_mpas_mesh
+from mpas_ocean.ops import tangential_reconstruction
+from mpas_ocean.tools import make_igw_case
+from mpas_ocean.verification.inertial_gravity_wave import InertialGravityWave
 
 
 @pytest.fixture(scope="module")
@@ -114,7 +114,7 @@ def test_restart(igw_case, tmp_path):
 def test_driver_ad_run(igw_case):
     """--ad driver: full rollout + adjoint of sum(ssh^2), shadows persisted
     (reference: test_Enzyme_end2end.jl writes d_Prog via write_netcdf)."""
-    from mpas_ocean_tpu.forward.driver import ocn_run_with_ad
+    from mpas_ocean.forward.driver import ocn_run_with_ad
 
     d, cfg = igw_case
     setup, final, d_prog, obj = ocn_run_with_ad(cfg, use_config_dt=True)
@@ -136,10 +136,10 @@ def test_driver_ad_run(igw_case):
 
 def test_culled_mesh_roundtrip_masks_vertex_signs(tmp_path):
     """Re-read culled channel meshes must keep edge_sign_on_vertex == 0 on
-    padded edgesOnVertex slots (round-1 VERDICT weak item 7: the curl at
-    boundary vertices of re-read meshes was garbage)."""
-    from mpas_ocean_tpu.mesh import planar_hex_mesh
-    from mpas_ocean_tpu.mesh.cull import cull_cells
+    padded edgesOnVertex slots (otherwise the curl at boundary vertices of
+    re-read meshes is garbage)."""
+    from mpas_ocean.mesh import planar_hex_mesh
+    from mpas_ocean.mesh.cull import cull_cells
 
     horz = planar_hex_mesh(16, 16, 1000.0, f0=1e-4)
     y = np.asarray(horz.cells.y)
@@ -156,9 +156,9 @@ def test_culled_mesh_roundtrip_masks_vertex_signs(tmp_path):
     # and the curl operator agrees between original and re-read mesh
     import jax.numpy as jnp
 
-    from mpas_ocean_tpu.mesh.mesh import Mesh
-    from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-    from mpas_ocean_tpu.ops import curl_on_vertex
+    from mpas_ocean.mesh.mesh import Mesh
+    from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+    from mpas_ocean.ops import curl_on_vertex
 
     u = np.random.default_rng(0).normal(size=(chan.n_edges, 1))
     va = make_vertical_mesh(chan, 1)
@@ -172,7 +172,7 @@ def _netcdf3_to_hdf5(src, dst):
     scales + DIMENSION_LIST), to exercise the h5py read branch."""
     import h5py
 
-    from mpas_ocean_tpu.infra.netcdf import read_netcdf as _read
+    from mpas_ocean.infra.netcdf import read_netcdf as _read
 
     ds = _read(src)
     # copy the RAW variable data (char variables stay S1 arrays — the layout
@@ -227,9 +227,9 @@ def test_plan_steps_rejects_calendar_output_interval():
     instead of silently degrading to end-only output."""
     from datetime import datetime, timedelta
 
-    from dateutil.relativedelta import relativedelta
+    from mpas_ocean.infra.time_manager import CalendarPeriod
 
-    from mpas_ocean_tpu.infra.time_manager import (
+    from mpas_ocean.infra.time_manager import (
         Clock,
         OneTimeAlarm,
         PeriodicAlarm,
@@ -239,7 +239,7 @@ def test_plan_steps_rejects_calendar_output_interval():
     clock = Clock(t0, timedelta(seconds=600))
     clock.attach_alarm(OneTimeAlarm("simulation_end", t0 + timedelta(days=2)))
     clock.attach_alarm(
-        PeriodicAlarm("outputAlarm", relativedelta(months=1), t0)
+        PeriodicAlarm("outputAlarm", CalendarPeriod(months=1), t0)
     )
     with pytest.raises(ValueError, match="calendar period"):
         plan_steps(clock)
@@ -252,11 +252,11 @@ def test_compare_reads_mpas_fortran_convention(tmp_path):
     (reference: src/compare.py:169-205)."""
     import jax.numpy as jnp
 
-    from mpas_ocean_tpu.infra.netcdf import write_netcdf
-    from mpas_ocean_tpu.mesh import planar_hex_mesh
-    from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-    from mpas_ocean_tpu.tools.compare import compare_output
-    from mpas_ocean_tpu.verification.inertial_gravity_wave import (
+    from mpas_ocean.infra.netcdf import write_netcdf
+    from mpas_ocean.mesh import planar_hex_mesh
+    from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+    from mpas_ocean.tools.compare import compare_output
+    from mpas_ocean.verification.inertial_gravity_wave import (
         InertialGravityWave,
     )
 
@@ -340,8 +340,8 @@ def test_monitor_series_and_health(tmp_path):
     checks (volume conservation on a periodic mesh)."""
     import json
 
-    from mpas_ocean_tpu.forward.driver import ocn_run
-    from mpas_ocean_tpu.tools import make_igw_case
+    from mpas_ocean.forward.driver import ocn_run
+    from mpas_ocean.tools import make_igw_case
 
     cfg = make_igw_case(
         tmp_path, nx=16, resolution_km=200.0, duration_seconds=4000,
@@ -367,7 +367,7 @@ def test_driver_nonlinear_config(tmp_path):
     """config_nonlinear_dynamics: true selects the vector-invariant
     dynamics through the whole config->driver->rollout chain, and the
     result differs from the linear run of the same case."""
-    from mpas_ocean_tpu.tools.cases import make_igw_case
+    from mpas_ocean.tools.cases import make_igw_case
 
     d_nl = tmp_path / "nl"
     d_lin = tmp_path / "lin"
@@ -396,7 +396,7 @@ def test_compare_plot_renders_cell_patches(igw_case, tmp_path):
     d, cfg = igw_case
     setup, prog = ocn_run(cfg)
     out_fp = os.path.join(d, "output.nc")
-    from mpas_ocean_tpu.tools.compare import (
+    from mpas_ocean.tools.compare import (
         _cell_patches, compare_output, plot_comparison,
     )
 
@@ -441,3 +441,15 @@ def test_driver_fast_path_routing(igw_case, capsys):
         np.asarray(prog_g.normal_velocity),
         rtol=0, atol=1e-12,
     )
+
+
+def test_netcdf4_without_h5py_says_what_is_missing(tmp_path, monkeypatch):
+    """h5py is imported only for NetCDF-4 input; without it the reader
+    names the missing package instead of failing obscurely."""
+    import sys
+
+    p = tmp_path / "mesh4.nc"
+    p.write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(64))
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="needs h5py"):
+        read_netcdf(p)

@@ -6,7 +6,7 @@ meshes" (reference: README.MD:5), and its operator tests run on a real
 externally generated MPAS mesh (test/ocn/test_Operators.jl:12-15). Every
 other mesh in this suite is a uniform hex lattice or icosphere; this module
 exercises the paths production variable-resolution meshes must use —
-gather operators, BSR/MXU matrix step, RCM reordering, the unstructured
+gather operators, BSR matrix step, RCM reordering, the unstructured
 partitioner + ShardedModel — on jittered, Lloyd-relaxed and GRADED
 (variable-resolution) Voronoi meshes with mixed 5/6/7-gon cells.
 """
@@ -16,17 +16,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.mesh.irregular import irregular_trisk_mesh
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-from mpas_ocean_tpu.ops import (
+from mpas_ocean.mesh.irregular import irregular_trisk_mesh
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.shallow_water import PrognosticVars
+from mpas_ocean.ops import (
     curl_on_vertex,
     divergence_on_cell,
     gradient_on_edge,
 )
-from mpas_ocean_tpu.utils.errors import error_measures
-from mpas_ocean_tpu.verification.manufactured import PlanarTestFields
+from mpas_ocean.utils.errors import error_measures
+from mpas_ocean.verification.manufactured import PlanarTestFields
 
 LX = LY = 10000.0
 
@@ -123,10 +123,10 @@ def test_irregular_operator_convergence():
 
 
 def test_irregular_gather_matrix_parity(irr24, graded24):
-    """BSR/MXU matrix step == gather step at f64 roundoff on irregular and
+    """BSR matrix step == gather step at f64 roundoff on irregular and
     graded meshes (identical matrix entries from non-uniform metrics)."""
-    from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-    from mpas_ocean_tpu.models.matrix_model import MatrixModel, matrix_run_loop
+    from mpas_ocean.forward.run_loop import ocn_run_loop
+    from mpas_ocean.models.matrix_model import MatrixModel, matrix_run_loop
 
     for mesh in (irr24, graded24):
         horz = mesh.horz
@@ -155,8 +155,8 @@ def test_irregular_gather_matrix_parity(irr24, graded24):
 def test_irregular_nonlinear_matrix_parity(irr24):
     """Vector-invariant dynamics on an irregular mesh: matrix path ==
     gather path (kite-weighted PV, non-uniform tangential weights)."""
-    from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-    from mpas_ocean_tpu.models.matrix_model import MatrixModel, matrix_run_loop
+    from mpas_ocean.forward.run_loop import ocn_run_loop
+    from mpas_ocean.models.matrix_model import MatrixModel, matrix_run_loop
 
     mesh = irr24
     horz = mesh.horz
@@ -184,8 +184,8 @@ def test_irregular_rcm_reduces_bandwidth(graded24):
     """RCM reordering measurably shrinks the BSR band bytes on an
     irregular mesh (generated point order is already fairly local, so the
     gate is 'no worse + shrinks a randomized order substantially')."""
-    from mpas_ocean_tpu.mesh.reorder import rcm_reorder
-    from mpas_ocean_tpu.ops.bsr import trisk_matrices
+    from mpas_ocean.mesh.reorder import rcm_reorder
+    from mpas_ocean.ops.bsr import trisk_matrices
 
     def total_bytes(horz):
         mats = trisk_matrices(Mesh(
@@ -200,8 +200,8 @@ def test_irregular_rcm_reduces_bandwidth(graded24):
     horz = graded24.horz
     # scramble the cell order to simulate an arbitrarily-ordered NetCDF
     # mesh, then RCM it back
-    from mpas_ocean_tpu.mesh.irregular import jittered_points
-    from mpas_ocean_tpu.mesh.voronoi import build_planar_trisk_mesh
+    from mpas_ocean.mesh.irregular import jittered_points
+    from mpas_ocean.mesh.voronoi import build_planar_trisk_mesh
 
     rng = np.random.default_rng(7)
     pts = np.stack([np.asarray(horz.cells.x), np.asarray(horz.cells.y)], -1)
@@ -219,10 +219,10 @@ def test_irregular_sharded_rollout_and_grad(irr24):
     """Unstructured partitioner + ShardedModel on 8 virtual devices, on an
     irregular mesh: rollout parity with the single-device gather path AND
     the whole-loop objective gradient."""
-    from mpas_ocean_tpu.forward.run_loop import (
+    from mpas_ocean.forward.run_loop import (
         ocn_run_loop, ocn_run_loop_objective,
     )
-    from mpas_ocean_tpu.parallel import ShardedModel
+    from mpas_ocean.parallel import ShardedModel
 
     mesh = irr24
     horz = mesh.horz

@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-from mpas_ocean_tpu.mesh import planar_hex_mesh
-from mpas_ocean_tpu.mesh.cull import cull_cells
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-from mpas_ocean_tpu.verification.kelvin_wave import KelvinWave
+from mpas_ocean.forward.run_loop import ocn_run_loop
+from mpas_ocean.mesh import planar_hex_mesh
+from mpas_ocean.mesh.cull import cull_cells
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.shallow_water import PrognosticVars
+from mpas_ocean.verification.kelvin_wave import KelvinWave
 
 
 NX = NY = 32
@@ -97,7 +97,7 @@ def _channel_prog(mesh):
 
 @pytest.fixture(scope="module")
 def channel_structured(channel_full):
-    from mpas_ocean_tpu.structured import StructuredModel
+    from mpas_ocean.structured import StructuredModel
 
     mesh, dc, parent, keep = channel_full
     sm = StructuredModel(mesh, NX, NY, parent_horz=parent, keep_cells=keep)
@@ -131,48 +131,10 @@ def test_structured_channel_matches_gather(channel_structured):
     )
 
 
-def test_structured_channel_pallas_fused_matches_roll(channel_structured):
-    """Masked fused-VMEM Pallas rollout == masked roll model (interpret)."""
-    from mpas_ocean_tpu.structured import pallas_run_loop
-    from mpas_ocean_tpu.structured.model import structured_run_loop
-
-    mesh, sm = channel_structured
-    st = sm.to_struct(_channel_prog(mesh))
-    n, dt = 10, 200.0
-    ref = structured_run_loop(st, sm.struct_mesh, dt, n)
-    out = pallas_run_loop(st, sm.struct_mesh, dt, n, interpret=True)
-    np.testing.assert_allclose(np.asarray(out.ssh), np.asarray(ref.ssh), atol=1e-11)
-    np.testing.assert_allclose(
-        np.asarray(out.normal_velocity),
-        np.asarray(ref.normal_velocity),
-        atol=1e-13,
-    )
-
-
-def test_structured_channel_pallas_tiled_matches_roll(channel_structured):
-    """Masked tiled Pallas per-step kernel == masked roll model (interpret)."""
-    from mpas_ocean_tpu.structured import pallas_tiled_run_loop
-    from mpas_ocean_tpu.structured.model import structured_run_loop
-
-    mesh, sm = channel_structured
-    st = sm.to_struct(_channel_prog(mesh))
-    n, dt = 6, 200.0
-    ref = structured_run_loop(st, sm.struct_mesh, dt, n)
-    out = pallas_tiled_run_loop(
-        st, sm.struct_mesh, dt, n, row_tile=4, interpret=True
-    )
-    np.testing.assert_allclose(np.asarray(out.ssh), np.asarray(ref.ssh), atol=1e-11)
-    np.testing.assert_allclose(
-        np.asarray(out.normal_velocity),
-        np.asarray(ref.normal_velocity),
-        atol=1e-13,
-    )
-
-
 def test_structured_channel_sharded_matches_roll(channel_structured):
     """Masked row-sharded slab model == masked roll model on 8 devices."""
-    from mpas_ocean_tpu.structured import ShardedStructuredModel
-    from mpas_ocean_tpu.structured.model import structured_run_loop
+    from mpas_ocean.structured import ShardedStructuredModel
+    from mpas_ocean.structured.model import structured_run_loop
 
     mesh, sm = channel_structured
     st = sm.to_struct(_channel_prog(mesh))
@@ -189,9 +151,9 @@ def test_structured_channel_sharded_matches_roll(channel_structured):
 
 
 def test_structured_channel_conv_matches_roll(channel_structured):
-    """Masked conv (MXU) formulation == masked roll model."""
-    from mpas_ocean_tpu.structured.conv_model import build_conv_step, conv_run_loop
-    from mpas_ocean_tpu.structured.model import structured_run_loop
+    """Masked conv formulation == masked roll model."""
+    from mpas_ocean.structured.conv_model import build_conv_step, conv_run_loop
+    from mpas_ocean.structured.model import structured_run_loop
 
     mesh, sm = channel_structured
     st = sm.to_struct(_channel_prog(mesh))

@@ -10,15 +10,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.mesh import planar_hex_mesh
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.linear_matrix import (
+from mpas_ocean.mesh import planar_hex_mesh
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.linear_matrix import (
     LinearizedMatrixModel,
     linearized_ref_loop,
     linearized_run_loop,
 )
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars
+from mpas_ocean.models.shallow_water import PrognosticVars
 
 K = 4
 
@@ -93,7 +93,7 @@ def test_composed_on_irregular_mesh():
     """A^q composition with genuinely non-uniform metrics (irregular
     Voronoi mesh): entries of GRAD/DIV/CORF all vary per element, so this
     pins the composition algebra beyond the lattice's uniform case."""
-    from mpas_ocean_tpu.mesh.irregular import irregular_trisk_mesh
+    from mpas_ocean.mesh.irregular import irregular_trisk_mesh
 
     horz = irregular_trisk_mesh(16, 16, 16000.0, 16000.0, jitter=0.25,
                                 lloyd=2, seed=3, f0=1e-4)
@@ -125,7 +125,7 @@ def test_composed_on_irregular_mesh():
 
 
 def test_composed_rejects_masked_configs():
-    from mpas_ocean_tpu.mesh.cull import cull_cells
+    from mpas_ocean.mesh.cull import cull_cells
 
     horz = planar_hex_mesh(16, 16, 1000.0, f0=1e-4)
     y = np.asarray(horz.cells.y)

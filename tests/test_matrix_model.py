@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu import ops
-from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-from mpas_ocean_tpu.mesh import planar_hex_mesh
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.matrix_model import MatrixModel, matrix_run_loop
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-from mpas_ocean_tpu.ops.bsr import bsr_matvec, trisk_matrices
+from mpas_ocean import ops
+from mpas_ocean.forward.run_loop import ocn_run_loop
+from mpas_ocean.mesh import planar_hex_mesh
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.matrix_model import MatrixModel, matrix_run_loop
+from mpas_ocean.models.shallow_water import PrognosticVars
+from mpas_ocean.ops.bsr import bsr_matvec, trisk_matrices
 
 NX = NY = 16
 K = 3
@@ -108,7 +108,7 @@ def test_matrix_rollout_differentiable(setup):
 
 def test_matrix_rollout_on_sphere_matches_gather():
     """The matrix path must work on non-planar, variable-metric meshes."""
-    from mpas_ocean_tpu.mesh.sphere import spherical_mesh
+    from mpas_ocean.mesh.sphere import spherical_mesh
 
     horz = spherical_mesh(4)  # 162 cells
     vert = make_vertical_mesh(
@@ -139,7 +139,7 @@ def test_matrix_rollout_on_sphere_matches_gather():
 def test_matrix_del2_fold_matches_gather_del2(setup):
     """del2 folded into the Coriolis matrix == the gather path's repaired
     del2 tendency chain (f64)."""
-    from mpas_ocean_tpu.forward.time_integration import forward_euler_step
+    from mpas_ocean.forward.time_integration import forward_euler_step
 
     mesh, prog = setup
     nu = 50.0
@@ -160,7 +160,7 @@ def test_del2_variable_bathymetry_paths_agree():
     """On a variable-bathymetry mesh (max_level_cell < K for some cells) the
     gather del2 must be level-masked: inactive edge-levels stay at exactly
     zero velocity and the gather and folded-matrix paths agree to roundoff."""
-    from mpas_ocean_tpu.forward.time_integration import forward_euler_step
+    from mpas_ocean.forward.time_integration import forward_euler_step
 
     horz = planar_hex_mesh(NX, NY, 1000.0, f0=1e-4)
     rng = np.random.default_rng(7)
@@ -201,7 +201,7 @@ def test_del2_variable_bathymetry_paths_agree():
 
 
 def test_matrix_rk4_matches_gather_rk4(setup):
-    from mpas_ocean_tpu.forward.time_integration import rk4_step
+    from mpas_ocean.forward.time_integration import rk4_step
 
     mesh, prog = setup
     mm = MatrixModel.from_mesh(mesh, dtype=np.float64)

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.mesh import planar_hex_mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.ops import tangential_reconstruction
+from mpas_ocean.mesh import planar_hex_mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.ops import tangential_reconstruction
 
 
 def test_counts(hex16):

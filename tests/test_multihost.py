@@ -1,8 +1,8 @@
 """Multi-process (multi-host analogue) execution test: two cooperating
 processes on localhost, each owning 4 virtual CPU devices, forming the 2x4
-('dcn', 'ici') hybrid mesh — the code path a real multi-slice TPU run
-takes via jax.distributed (round-1 VERDICT missing item 1; the reference
-declares MPI but ships no distributed code, SURVEY section 2.2)."""
+('dcn', 'ici') hybrid mesh — the code path a run over several hosts
+takes via jax.distributed (the reference declares MPI but ships no
+distributed code, SURVEY section 2.2)."""
 
 import os
 import socket

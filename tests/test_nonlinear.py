@@ -19,13 +19,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.forward.run_loop import ocn_run_loop, ocn_run_loop_objective
-from mpas_ocean_tpu.forward.time_integration import (
+from mpas_ocean.forward.run_loop import ocn_run_loop, ocn_run_loop_objective
+from mpas_ocean.forward.time_integration import (
     ForwardEuler,
     RungeKutta4,
     forward_euler_step,
 )
-from mpas_ocean_tpu.models.shallow_water import (
+from mpas_ocean.models.shallow_water import (
     PrognosticVars,
     compute_diagnostics,
     compute_normal_velocity_tendency,
@@ -33,7 +33,7 @@ from mpas_ocean_tpu.models.shallow_water import (
     potential_vorticity_on_vertex,
     update_ssh,
 )
-from mpas_ocean_tpu.ops.operators import (
+from mpas_ocean.ops.operators import (
     interpolate_cell_to_vertex,
     interpolate_vertex_to_edge,
 )
@@ -78,8 +78,8 @@ def test_pv_is_f_over_h_at_rest(mesh16):
 def mesh16_deep(hex16):
     """16x16 hex with a 100 m resting depth: gravity speed ~31 m/s, so
     nonlinear advection is a controlled perturbation."""
-    from mpas_ocean_tpu.mesh.mesh import Mesh
-    from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
+    from mpas_ocean.mesh.mesh import Mesh
+    from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
 
     vert = make_vertical_mesh(
         hex16,
@@ -188,9 +188,9 @@ def test_nonlinear_end2end_gradient_vs_fd(igw_mesh):
 
 
 def test_matrix_nonlinear_matches_gather(mesh16_3l):
-    """The MXU matrix formulation of the nonlinear step agrees with the
+    """The BSR matrix formulation of the nonlinear step agrees with the
     gather path to f64 roundoff (same invariant the linear paths keep)."""
-    from mpas_ocean_tpu.models.matrix_model import MatrixModel, matrix_run_loop
+    from mpas_ocean.models.matrix_model import MatrixModel, matrix_run_loop
 
     mesh = mesh16_3l
     prog = _wavy_state(mesh, 0.05)
@@ -207,7 +207,7 @@ def test_matrix_nonlinear_matches_gather(mesh16_3l):
 
 
 def test_matrix_nonlinear_requires_operators(mesh16):
-    from mpas_ocean_tpu.models.matrix_model import MatrixModel, matrix_step
+    from mpas_ocean.models.matrix_model import MatrixModel, matrix_step
 
     prog = _wavy_state(mesh16, 0.1)
     mm = MatrixModel.from_mesh(mesh16, dtype=np.float64)
@@ -218,10 +218,10 @@ def test_matrix_nonlinear_requires_operators(mesh16):
 def test_structured_nonlinear_matches_gather():
     """Roll-path nonlinear step (machine-extracted vertex stencils) agrees
     with the gather path at f64 roundoff on a periodic lattice."""
-    from mpas_ocean_tpu.mesh import planar_hex_mesh
-    from mpas_ocean_tpu.mesh.mesh import Mesh
-    from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-    from mpas_ocean_tpu.structured import StructuredModel
+    from mpas_ocean.mesh import planar_hex_mesh
+    from mpas_ocean.mesh.mesh import Mesh
+    from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+    from mpas_ocean.structured import StructuredModel
 
     nx = 16
     horz = planar_hex_mesh(nx, nx, 1000.0, f0=1e-4)
@@ -241,11 +241,11 @@ def test_structured_nonlinear_matches_gather():
 
 
 def _channel_setup(nx=16, K=2):
-    from mpas_ocean_tpu.mesh import planar_hex_mesh
-    from mpas_ocean_tpu.mesh.cull import cull_cells
-    from mpas_ocean_tpu.mesh.mesh import Mesh
-    from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-    from mpas_ocean_tpu.structured import StructuredModel
+    from mpas_ocean.mesh import planar_hex_mesh
+    from mpas_ocean.mesh.cull import cull_cells
+    from mpas_ocean.mesh.mesh import Mesh
+    from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+    from mpas_ocean.structured import StructuredModel
 
     dc = 1000.0
     parent = planar_hex_mesh(nx, nx, dc, f0=1e-4)
@@ -279,14 +279,11 @@ def test_structured_nonlinear_walls_match_gather():
     (StructMesh.vertex_kite_planes / vertex_mask) reproduce the culled
     gather path's boundary-vertex handling (ops/operators.
     interpolate_cell_to_vertex partial kites) at f64 roundoff — roll,
-    fused-VMEM, tiled (2q-halos), sharded slab and sharded superstep."""
+    sharded slab and sharded superstep (2q-row halos)."""
     import jax as _jax
 
-    from mpas_ocean_tpu.structured.model import structured_run_loop
-    from mpas_ocean_tpu.structured.pallas_model import (
-        pallas_run_loop, pallas_tiled_run_loop,
-    )
-    from mpas_ocean_tpu.structured.sharded import ShardedStructuredModel
+    from mpas_ocean.structured.model import structured_run_loop
+    from mpas_ocean.structured.sharded import ShardedStructuredModel
 
     mesh, sm, prog = _channel_setup()
     st = sm.to_struct(prog)
@@ -300,16 +297,12 @@ def test_structured_nonlinear_walls_match_gather():
     ).max() < 1e-13
     assert np.abs(np.asarray(ref_u.ssh - out_g.ssh)).max() < 1e-12
 
-    out_f = pallas_run_loop(st, smesh, dt, n, interpret=True, nonlinear=True)
-    out_t = pallas_tiled_run_loop(
-        st, smesh, dt, n, row_tile=4, interpret=True, q=2, nonlinear=True
-    )
     ssm = ShardedStructuredModel(smesh, devices=_jax.devices()[:2])
     out_r = ssm.gather(ssm.run(ssm.scatter(st), dt, n, nonlinear=True))
     out_p = ssm.gather(
-        ssm.run_pallas(ssm.scatter(st), dt, n, q=2, nonlinear=True)
+        ssm.run_superstep(ssm.scatter(st), dt, n, q=2, nonlinear=True)
     )
-    for out in (out_f, out_t, out_r, out_p):
+    for out in (out_r, out_p):
         np.testing.assert_allclose(
             np.asarray(out.normal_velocity),
             np.asarray(ref.normal_velocity),
@@ -321,10 +314,13 @@ def test_structured_nonlinear_walls_match_gather():
 
 
 def test_structured_nonlinear_walls_adjoint():
-    """Fused adjoint segments with the wall-masked nonlinear operand
-    (stacked f_vertex/vertex-mask/kite planes) match the roll vjp."""
-    from mpas_ocean_tpu.structured.model import structured_run_loop
-    from mpas_ocean_tpu.structured.pallas_model import pallas_adjoint_rollout
+    """The checkpointed reverse (structured_rollout_diff) with the
+    wall-masked nonlinear vertex constants matches the roll vjp for an
+    arbitrary output cotangent."""
+    from mpas_ocean.structured.model import (
+        structured_rollout_diff,
+        structured_run_loop,
+    )
 
     mesh, sm, prog = _channel_setup(nx=8)
     st = sm.to_struct(prog)
@@ -335,9 +331,10 @@ def test_structured_nonlinear_walls_adjoint():
     )
     g = jax.tree.map(lambda a: a + 0.5, out)
     d_ref, ddt_ref = vjp(g)
-    d_st, ddt = pallas_adjoint_rollout(
-        st, smesh, dt, n, g, plan=(2, 3), interpret=True, nonlinear=True
+    _, vjp_c = jax.vjp(
+        lambda s, t: structured_rollout_diff(s, smesh, t, n, True), st, dt
     )
+    d_st, ddt = vjp_c(g)
     for a, b in zip(jax.tree.leaves(d_st), jax.tree.leaves(d_ref)):
         np.testing.assert_allclose(
             np.asarray(a), np.asarray(b), rtol=1e-9, atol=1e-12
@@ -348,7 +345,7 @@ def test_structured_nonlinear_walls_adjoint():
 def test_structured_nonlinear_handbuilt_mask_still_rejects():
     """A hand-built masked StructMesh WITHOUT the masked vertex constants
     must still refuse nonlinear runs with a helpful error."""
-    from mpas_ocean_tpu.structured.model import structured_step
+    from mpas_ocean.structured.model import structured_step
 
     mesh, sm, prog = _channel_setup(nx=8)
     smesh = sm.struct_mesh.replace(vertex_kite_planes=None, vertex_mask=None)

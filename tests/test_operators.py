@@ -8,16 +8,16 @@ must land on the same numbers.
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.ops import (
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.ops import (
     curl_on_vertex,
     divergence_on_cell,
     gradient_on_edge,
     interpolate_cell_to_edge,
 )
-from mpas_ocean_tpu.utils.errors import error_measures
-from mpas_ocean_tpu.verification.manufactured import PlanarTestFields
+from mpas_ocean.utils.errors import error_measures
+from mpas_ocean.verification.manufactured import PlanarTestFields
 
 NVERTLEVELS = 10  # reference uses a 10-level dummy vertical mesh (:23)
 
@@ -80,7 +80,7 @@ def test_interpolation_second_order(setup):
 
 def test_gradient_convergence():
     """Refinement sweep: gradient converges at second order."""
-    from mpas_ocean_tpu.mesh import planar_hex_mesh
+    from mpas_ocean.mesh import planar_hex_mesh
 
     errs = []
     for n in (16, 32):

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.forward.run_loop import ocn_run_loop, ocn_run_loop_objective
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-from mpas_ocean_tpu.parallel import ShardedModel, build_partition, partition_cells
-from mpas_ocean_tpu.verification.inertial_gravity_wave import InertialGravityWave
+from mpas_ocean.forward.run_loop import ocn_run_loop, ocn_run_loop_objective
+from mpas_ocean.models.shallow_water import PrognosticVars
+from mpas_ocean.parallel import ShardedModel, build_partition, partition_cells
+from mpas_ocean.verification.inertial_gravity_wave import InertialGravityWave
 
 
 @pytest.fixture(scope="module")
@@ -129,7 +129,7 @@ def test_partition_with_more_parts_than_rows(igw_mesh):
 
 def test_partition_stats(igw_mesh):
     """Static communication profile: sane balance, small halo, few rounds."""
-    from mpas_ocean_tpu.parallel import build_partition, format_stats, partition_stats
+    from mpas_ocean.parallel import build_partition, format_stats, partition_stats
 
     p = build_partition(igw_mesh, 8)
     s = partition_stats(p)
@@ -145,8 +145,8 @@ def test_partition_stats(igw_mesh):
 def test_sharded_rk4_matches_single_device(igw_mesh, igw_prog, exchange):
     """Sharded RK4 == global RK4 at roundoff: each RK4 stage widens the
     stencil, so the sharded stepper refreshes halos before EVERY stage-rate
-    evaluation (round-1 VERDICT weak item 1)."""
-    from mpas_ocean_tpu.forward.time_integration import RungeKutta4
+    evaluation."""
+    from mpas_ocean.forward.time_integration import RungeKutta4
 
     dt = 976.0
     n = 5
@@ -195,7 +195,7 @@ def test_overlap_matches_serial_exchange(igw_mesh, igw_prog, exchange):
 def test_scaling_harness_smoke():
     """Weak-scaling harness executes end-to-end on the virtual device mesh
     (numbers are not meaningful on CPU; the code path and bookkeeping are)."""
-    from mpas_ocean_tpu.tools.scaling import measure_scaling
+    from mpas_ocean.tools.scaling import measure_scaling
 
     recs = measure_scaling(
         rows_per_device=4, nx=16, levels=2, steps=4, device_counts=[1, 2]
@@ -232,7 +232,7 @@ def test_sharded_nonlinear_matches_single_device(igw_mesh, igw_prog, exchange):
 
 
 def test_sharded_nonlinear_rk4_and_grad(igw_mesh, igw_prog):
-    from mpas_ocean_tpu.forward.time_integration import RungeKutta4
+    from mpas_ocean.forward.time_integration import RungeKutta4
 
     dt, n = 976.0, 4
     sm = ShardedModel(igw_mesh)

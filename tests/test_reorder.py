@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu import ops
-from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-from mpas_ocean_tpu.mesh import planar_hex_mesh
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.reorder import rcm_reorder
-from mpas_ocean_tpu.mesh.sphere import spherical_mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-from mpas_ocean_tpu.ops.bsr import trisk_matrices
+from mpas_ocean import ops
+from mpas_ocean.forward.run_loop import ocn_run_loop
+from mpas_ocean.mesh import planar_hex_mesh
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.reorder import rcm_reorder
+from mpas_ocean.mesh.sphere import spherical_mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.shallow_water import PrognosticVars
+from mpas_ocean.ops.bsr import trisk_matrices
 
 
 @pytest.fixture(scope="module")

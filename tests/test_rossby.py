@@ -5,13 +5,13 @@ relation omega = -beta k / (k^2 + l^2 + 1/LR^2)."""
 import jax.numpy as jnp
 import numpy as np
 
-from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-from mpas_ocean_tpu.forward.time_integration import ForwardBackward
-from mpas_ocean_tpu.mesh import planar_hex_mesh
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-from mpas_ocean_tpu.verification import RossbyWave
+from mpas_ocean.forward.run_loop import ocn_run_loop
+from mpas_ocean.forward.time_integration import ForwardBackward
+from mpas_ocean.mesh import planar_hex_mesh
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.shallow_water import PrognosticVars
+from mpas_ocean.verification import RossbyWave
 
 
 def test_rossby_wave_westward_phase_speed():

@@ -6,18 +6,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.constants import GRAVITY
-from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.sphere import (
+from mpas_ocean.constants import GRAVITY
+from mpas_ocean.forward.run_loop import ocn_run_loop
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.sphere import (
     EARTH_OMEGA,
     EARTH_RADIUS,
     icosphere_points,
     spherical_mesh,
 )
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-from mpas_ocean_tpu.ops import divergence_on_cell, tangential_reconstruction
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.shallow_water import PrognosticVars
+from mpas_ocean.ops import divergence_on_cell, tangential_reconstruction
 
 N = 8  # 642 cells
 
@@ -126,7 +126,7 @@ def test_nonlinear_on_sphere(sphere):
     scheme must conserve energy: RK4 drift is time-discretization-only.
     Exercises kite areas, vertex PV and the symmetric flux on a truly
     unstructured spherical mesh (12 pentagons + hexagons)."""
-    from mpas_ocean_tpu.models.shallow_water import (
+    from mpas_ocean.models.shallow_water import (
         kinetic_energy_on_cell,
         potential_vorticity_on_vertex,
     )
@@ -154,7 +154,7 @@ def test_nonlinear_on_sphere(sphere):
             + 0.5 * GRAVITY * jnp.sum(p.ssh * p.ssh * area)
         )
 
-    from mpas_ocean_tpu.forward.time_integration import RungeKutta4
+    from mpas_ocean.forward.time_integration import RungeKutta4
 
     e0 = total_energy(prog)
     fin = ocn_run_loop(prog, mesh, 300.0, 50, method=RungeKutta4, nonlinear=True)
@@ -173,8 +173,8 @@ def test_tracers_and_stratification_on_sphere(sphere):
     icosahedral mesh (pentagons included): content exactly conserved,
     uniform tracer preserved, and the stratified run stays finite with the
     levels genuinely coupled."""
-    from mpas_ocean_tpu.models.stratification import make_stratification
-    from mpas_ocean_tpu.models.tracers import make_tracers, total_tracer_content
+    from mpas_ocean.models.stratification import make_stratification
+    from mpas_ocean.models.tracers import make_tracers, total_tracer_content
 
     K = 2
     vert = make_vertical_mesh(
@@ -190,7 +190,7 @@ def test_tracers_and_stratification_on_sphere(sphere):
     z = np.asarray(sphere.cells.z)
     tr = make_tracers(mesh, [10.0 + 5.0 * z / z.max(),
                              np.full(sphere.n_cells, 35.0)])
-    from mpas_ocean_tpu.models.shallow_water import update_ssh
+    from mpas_ocean.models.shallow_water import update_ssh
 
     prog = PrognosticVars(
         ssh=update_ssh(jnp.asarray(h0), mesh),
@@ -213,7 +213,7 @@ def test_tracers_and_stratification_on_sphere(sphere):
     assert du.max() > 0
 
     # matrix path agrees on the sphere too
-    from mpas_ocean_tpu.models.matrix_model import MatrixModel, matrix_run_loop
+    from mpas_ocean.models.matrix_model import MatrixModel, matrix_run_loop
 
     mm = MatrixModel.from_mesh(mesh, dtype=np.float64)
     out_m = matrix_run_loop(prog, mm, 30.0, 20, tracer_kappa=100.0, strat=strat)

@@ -16,14 +16,14 @@ layer), interior (Sverdrup-balance) rel-L2 3.0%, western intensification
 import jax.numpy as jnp
 import numpy as np
 
-from mpas_ocean_tpu.mesh import planar_hex_mesh
-from mpas_ocean_tpu.mesh.cull import cull_cells
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.forcing import make_forcing
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-from mpas_ocean_tpu.structured import StructuredModel
-from mpas_ocean_tpu.verification.stommel_gyre import StommelGyre
+from mpas_ocean.mesh import planar_hex_mesh
+from mpas_ocean.mesh.cull import cull_cells
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.forcing import make_forcing
+from mpas_ocean.models.shallow_water import PrognosticVars
+from mpas_ocean.structured import StructuredModel
+from mpas_ocean.verification.stommel_gyre import StommelGyre
 
 
 def test_stommel_analytic_self_consistency():
@@ -122,12 +122,12 @@ def test_nonlinear_gyre_paths_agree_and_spin_up():
     finite state."""
     import jax
 
-    from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-    from mpas_ocean_tpu.models.shallow_water import (
+    from mpas_ocean.forward.run_loop import ocn_run_loop
+    from mpas_ocean.models.shallow_water import (
         potential_vorticity_on_vertex,
     )
-    from mpas_ocean_tpu.ops.operators import curl_on_vertex
-    from mpas_ocean_tpu.structured.model import structured_run_loop
+    from mpas_ocean.ops.operators import curl_on_vertex
+    from mpas_ocean.structured.model import structured_run_loop
 
     nx = ny = 16
     dc = 31.25e3
@@ -161,7 +161,7 @@ def test_nonlinear_gyre_paths_agree_and_spin_up():
     st = sm.to_struct(prog)
     n, dt = 400, 120.0
 
-    from mpas_ocean_tpu.forward.time_integration import ForwardBackward
+    from mpas_ocean.forward.time_integration import ForwardBackward
 
     out_g = ocn_run_loop(prog, mesh, dt, n, method=ForwardBackward,
                          nonlinear=True, forcing=forcing)

@@ -13,13 +13,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-from mpas_ocean_tpu.forward.time_integration import RungeKutta4
-from mpas_ocean_tpu.mesh import planar_hex_mesh
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars, update_ssh
-from mpas_ocean_tpu.models.stratification import (
+from mpas_ocean.forward.run_loop import ocn_run_loop
+from mpas_ocean.forward.time_integration import RungeKutta4
+from mpas_ocean.mesh import planar_hex_mesh
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.shallow_water import PrognosticVars, update_ssh
+from mpas_ocean.models.stratification import (
     baroclinic_wave_speeds,
     make_stratification,
 )
@@ -64,7 +64,7 @@ def test_unstable_column_rejected():
 
 
 def test_matrix_path_parity(strat_setup):
-    from mpas_ocean_tpu.models.matrix_model import MatrixModel, matrix_run_loop
+    from mpas_ocean.models.matrix_model import MatrixModel, matrix_run_loop
 
     mesh, prog, strat = strat_setup
     mm = MatrixModel.from_mesh(mesh, dtype=np.float64)
@@ -77,8 +77,7 @@ def test_matrix_path_parity(strat_setup):
 
 
 def test_roll_and_fused_path_parity(strat_setup):
-    from mpas_ocean_tpu.structured.model import StructuredModel
-    from mpas_ocean_tpu.structured.pallas_model import pallas_run_loop
+    from mpas_ocean.structured.model import StructuredModel
 
     mesh, prog, strat = strat_setup
     sm = StructuredModel(mesh, 16, 16)
@@ -87,14 +86,6 @@ def test_roll_and_fused_path_parity(strat_setup):
     b = sm.from_struct(sm.run(st, DT, 10, strat=strat))
     np.testing.assert_allclose(
         np.asarray(a.normal_velocity), np.asarray(b.normal_velocity),
-        atol=1e-13,
-    )
-    c = sm.from_struct(
-        pallas_run_loop(st, sm.struct_mesh, DT, 10, interpret=True,
-                        strat=strat)
-    )
-    np.testing.assert_allclose(
-        np.asarray(a.normal_velocity), np.asarray(c.normal_velocity),
         atol=1e-13,
     )
     # RK4 on gather and roll
@@ -106,26 +97,8 @@ def test_roll_and_fused_path_parity(strat_setup):
     )
 
 
-def test_pallas_tiled_strat_parity(strat_setup):
-    from mpas_ocean_tpu.structured.model import StructuredModel
-    from mpas_ocean_tpu.structured.pallas_model import pallas_tiled_run_loop
-
-    mesh, prog, strat = strat_setup
-    sm = StructuredModel(mesh, 16, 16)
-    st = sm.to_struct(prog)
-    ref = sm.run(st, DT, 8, strat=strat)
-    out = pallas_tiled_run_loop(
-        st, sm.struct_mesh, DT, 8, row_tile=4, interpret=True, q=2,
-        strat=strat,
-    )
-    np.testing.assert_allclose(
-        np.asarray(ref.normal_velocity), np.asarray(out.normal_velocity),
-        atol=1e-13,
-    )
-
-
 def test_sharded_parity(strat_setup):
-    from mpas_ocean_tpu.parallel.shard_step import ShardedModel
+    from mpas_ocean.parallel.shard_step import ShardedModel
 
     mesh, prog, strat = strat_setup
     sm = ShardedModel(mesh, devices=jax.devices())
@@ -139,8 +112,8 @@ def test_sharded_parity(strat_setup):
 
 
 def test_structured_sharded_parity(strat_setup):
-    from mpas_ocean_tpu.structured.model import StructuredModel
-    from mpas_ocean_tpu.structured.sharded import ShardedStructuredModel
+    from mpas_ocean.structured.model import StructuredModel
+    from mpas_ocean.structured.sharded import ShardedStructuredModel
 
     mesh, prog, strat = strat_setup
     sm = StructuredModel(mesh, 16, 16)
@@ -157,47 +130,14 @@ def test_structured_sharded_parity(strat_setup):
         )
 
 
-def test_fused_adjoint_with_strat(strat_setup):
-    from mpas_ocean_tpu.structured.model import StructuredModel
-    from mpas_ocean_tpu.structured.pallas_model import (
-        _checkpointed_roll_rollout,
-        pallas_adjoint_rollout,
-    )
-
-    mesh, prog, strat = strat_setup
-    sm = StructuredModel(mesh, 16, 16)
-    st = sm.to_struct(prog)
-    n = 6
-
-    def roll_obj(s):
-        out = _checkpointed_roll_rollout(s, sm.struct_mesh, DT, n, strat=strat)
-        return jnp.sum(out.ssh ** 2)
-
-    g_ref = jax.grad(roll_obj)(st)
-    out = _checkpointed_roll_rollout(st, sm.struct_mesh, DT, n, strat=strat)
-    g_out = out.replace(
-        ssh=2 * out.ssh,
-        layer_thickness=jnp.zeros_like(out.layer_thickness),
-        normal_velocity=jnp.zeros_like(out.normal_velocity),
-    )
-    d_state, _ = pallas_adjoint_rollout(
-        st, sm.struct_mesh, DT, n, g_out, plan=(2, 3), interpret=True,
-        strat=strat,
-    )
-    for name in ("ssh", "layer_thickness", "normal_velocity"):
-        a = np.asarray(getattr(g_ref, name))
-        b = np.asarray(getattr(d_state, name))
-        np.testing.assert_allclose(b, a, atol=1e-11 * max(1.0, np.abs(a).max()))
-
-
 def test_strat_gradient_flows_and_matches(strat_setup):
     """d(objective)/d(phi_weights) is nonzero and identical whether it flows
-    through pallas_rollout_diff's custom VJP or plain AD of the roll model
-    (the review found the custom VJP silently returning zeros)."""
-    from mpas_ocean_tpu.structured.model import StructuredModel
-    from mpas_ocean_tpu.structured.pallas_model import (
-        _checkpointed_roll_rollout,
-        pallas_rollout_diff,
+    through the checkpointed structured_rollout_diff or plain AD of the
+    roll scan (a custom VJP once silently returned zeros here)."""
+    from mpas_ocean.structured.model import (
+        StructuredModel,
+        structured_rollout_diff,
+        structured_run_loop,
     )
 
     mesh, prog, strat = strat_setup
@@ -206,12 +146,12 @@ def test_strat_gradient_flows_and_matches(strat_setup):
     n = 5
 
     def f_diff(w):
-        out = pallas_rollout_diff(st, sm.struct_mesh, DT, n, False, 0.0,
-                                  1.0, w)
+        out = structured_rollout_diff(st, sm.struct_mesh, DT, n, False, 0.0,
+                                      1.0, w)
         return jnp.sum(out.ssh ** 2)
 
     def f_roll(w):
-        out = _checkpointed_roll_rollout(st, sm.struct_mesh, DT, n, strat=w)
+        out = structured_run_loop(st, sm.struct_mesh, DT, n, strat=w)
         return jnp.sum(out.ssh ** 2)
 
     g1 = jax.grad(f_diff)(strat)
@@ -222,63 +162,12 @@ def test_strat_gradient_flows_and_matches(strat_setup):
     )
 
 
-def test_fused_segment_strat_weight_cotangent(strat_setup):
-    """The fused adjoint-segment kernels accumulate d(phi_weights) too
-    (interpret mode): matches the roll-model gradient."""
-    from mpas_ocean_tpu.structured.model import StructuredModel
-    from mpas_ocean_tpu.structured.pallas_model import (
-        _adjoint_aux,
-        _checkpointed_roll_rollout,
-        _nl_setup,
-        _pallas_adjoint_from_ckpts,
-        _pallas_forward_ckpts,
-        _strat_w,
-    )
-
-    mesh, prog, strat = strat_setup
-    sm = StructuredModel(mesh, 16, 16)
-    smesh = sm.struct_mesh
-    st = sm.to_struct(prog)
-    n, b, m = 6, 2, 3
-    dtype = st.layer_thickness.dtype
-    f_edge, rts, scal, mask = _adjoint_aux(smesh, DT, dtype)
-    sw = _strat_w(strat, dtype)
-    ny2, nx = smesh.ny2, smesh.nx
-    k = st.layer_thickness.shape[-1]
-    _, ckpts = _pallas_forward_ckpts(
-        st.ssh[..., None], st.layer_thickness,
-        st.normal_velocity.reshape(6, ny2, nx, k),
-        f_edge, rts, scal, mask, None, None, None, sw,
-        terms=smesh.coriolis_terms, n_steps=n, big=b * m, interpret=True,
-    )
-    out = _checkpointed_roll_rollout(st, smesh, DT, n, strat=strat)
-    cot0 = (
-        (2 * out.ssh)[..., None].astype(dtype),
-        jnp.zeros_like(out.layer_thickness),
-        jnp.zeros((6, ny2, nx, k), dtype),
-    )
-    _, _, dsw, _, _ = _pallas_adjoint_from_ckpts(
-        ckpts, f_edge, rts, scal, cot0, mask, None, None, sw,
-        terms=smesh.coriolis_terms, b=b, m=m, interpret=True,
-    )
-
-    def f_roll(w):
-        o = _checkpointed_roll_rollout(st, smesh, DT, n, strat=w)
-        return jnp.sum(o.ssh ** 2)
-
-    g_ref = jax.grad(f_roll)(strat).phi_weights
-    np.testing.assert_allclose(
-        np.asarray(dsw), np.asarray(g_ref),
-        atol=1e-10 * max(1.0, float(jnp.abs(g_ref).max())),
-    )
-
-
 def test_two_layer_internal_wave_speed():
     """A standing baroclinic mode (interface tilted, surface flat) must
     oscillate at omega = c1*k with c1^2 = g' H1 H2/(H1+H2): run half a
     period with RK4 and check the mode amplitude has inverted. This is the
     physics the reference cannot represent at all."""
-    from mpas_ocean_tpu.verification import InternalWave
+    from mpas_ocean.verification import InternalWave
 
     nx, dc = 32, 10000.0
     iw = InternalWave(lx=nx * dc / 1e3, amplitude=1.0)
@@ -323,8 +212,8 @@ def test_two_layer_internal_wave_speed():
 
 
 def test_driver_stratified_config(tmp_path):
-    from mpas_ocean_tpu.forward.driver import ocn_run
-    from mpas_ocean_tpu.tools import make_igw_case
+    from mpas_ocean.forward.driver import ocn_run
+    from mpas_ocean.tools import make_igw_case
 
     case = tmp_path / "strat_case"
     cfg = make_igw_case(case, nx=16, resolution_km=200.0, n_vert_levels=2,
@@ -343,8 +232,8 @@ def test_driver_stratified_config(tmp_path):
 
 
 def test_density_count_mismatch_rejected(tmp_path):
-    from mpas_ocean_tpu.forward.init import ocn_init
-    from mpas_ocean_tpu.tools import make_igw_case
+    from mpas_ocean.forward.init import ocn_init
+    from mpas_ocean.tools import make_igw_case
 
     case = tmp_path / "bad_strat_case"
     cfg = make_igw_case(case, nx=16, resolution_km=200.0, n_vert_levels=1,

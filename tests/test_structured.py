@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu import ops
-from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-from mpas_ocean_tpu.mesh import planar_hex_mesh
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-from mpas_ocean_tpu.structured import StructuredModel
-from mpas_ocean_tpu.structured import model as SM
+from mpas_ocean import ops
+from mpas_ocean.forward.run_loop import ocn_run_loop
+from mpas_ocean.mesh import planar_hex_mesh
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.shallow_water import PrognosticVars
+from mpas_ocean.structured import StructuredModel
+from mpas_ocean.structured import model as SM
 
 NX = NY = 16
 K = 3
@@ -112,7 +112,7 @@ def test_rejects_non_hex_order():
 def test_rk4_rollout_equivalence(setup):
     """Roll-path RK4 (structured_rk4_step) matches the gather-path RK4
     stage for stage."""
-    from mpas_ocean_tpu.forward.time_integration import RungeKutta4
+    from mpas_ocean.forward.time_integration import RungeKutta4
 
     mesh, sm, prog = setup
     ref = ocn_run_loop(prog, mesh, 5.0, 10, method=RungeKutta4)
@@ -130,7 +130,7 @@ def test_rk4_rollout_equivalence(setup):
 
 
 def test_rk4_nonlinear_rollout_equivalence(setup):
-    from mpas_ocean_tpu.forward.time_integration import RungeKutta4
+    from mpas_ocean.forward.time_integration import RungeKutta4
 
     mesh, sm, prog = setup
     ref = ocn_run_loop(prog, mesh, 5.0, 8, method=RungeKutta4, nonlinear=True)

@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.mesh import planar_hex_mesh
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-from mpas_ocean_tpu.structured import StructuredModel
-from mpas_ocean_tpu.structured.model import structured_run_loop
-from mpas_ocean_tpu.structured.sharded import ShardedStructuredModel
+from mpas_ocean.mesh import planar_hex_mesh
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.shallow_water import PrognosticVars
+from mpas_ocean.structured import StructuredModel
+from mpas_ocean.structured.model import structured_run_loop
+from mpas_ocean.structured.sharded import ShardedStructuredModel
 
 NX = NY = 16
 K = 3
@@ -77,7 +77,7 @@ def test_sharded_structured_overlap_masked_channel():
     (XLA may contract mul+add into FMA differently between the two
     programs — 1 ulp) and to the global masked rollout (2 devices so
     rows >= 3 activates overlap)."""
-    from mpas_ocean_tpu.mesh.cull import cull_cells
+    from mpas_ocean.mesh.cull import cull_cells
 
     dc = 1000.0
     horz = planar_hex_mesh(NX, NY, dc, f0=1e-4)
@@ -159,8 +159,8 @@ def test_sharded_structured_nonlinear_masked_runs():
     """Wall-masked nonlinear slab runs now work (masked vertex constants
     ride the stacked f_vertex slab); a mesh stripped of those constants
     still refuses with a helpful error."""
-    from mpas_ocean_tpu.mesh.cull import cull_cells
-    from mpas_ocean_tpu.structured.model import structured_run_loop as srl
+    from mpas_ocean.mesh.cull import cull_cells
+    from mpas_ocean.structured.model import structured_run_loop as srl
 
     dc = 1000.0
     horz = planar_hex_mesh(NX, NY, dc, f0=1e-4)
@@ -200,23 +200,20 @@ def test_sharded_structured_nonlinear_masked_runs():
 
 
 @pytest.mark.parametrize(
-    "n_devices,q,row_tile",
-    [(2, 1, None), (2, 3, None), (2, 2, 2), (4, 2, None), (8, 1, None)],
+    "n_devices,q", [(2, 1), (2, 3), (2, 4), (4, 2), (8, 1)],
 )
-def test_sharded_pallas_matches_global(setup, n_devices, q, row_tile):
+def test_sharded_pallas_matches_global(setup, n_devices, q):
     """Communication-avoiding superstep path (one ppermute pair of q halo
-    rows, then ONE Pallas kernel advancing q steps per row tile) == global
-    roll rollout at f64 roundoff — including multi-tile slabs (row_tile=2
-    -> two tiles per device, inner halos from local rows, outer from the
-    ppermuted blocks)."""
+    rows, then q steps on the halo-extended slab) == global roll rollout
+    at f64 roundoff, including q = rows/device (the whole slab as halo)."""
     sm, st = setup
-    n = 6
+    n = 12 if q == 4 else 6
     ref = structured_run_loop(st, sm.struct_mesh, 10.0, n)
 
     ssm = ShardedStructuredModel(
         sm.struct_mesh, devices=jax.devices()[:n_devices]
     )
-    local = ssm.run_pallas(ssm.scatter(st), 10.0, n, q=q, row_tile=row_tile)
+    local = ssm.run_superstep(ssm.scatter(st), 10.0, n, q=q)
     out = ssm.gather(local)
 
     np.testing.assert_allclose(
@@ -239,11 +236,10 @@ def test_sharded_pallas_matches_global(setup, n_devices, q, row_tile):
 def test_sharded_pallas_masked_forced():
     """Superstep path on a wall-masked channel with momentum forcing (wind
     + both drags + Rayleigh): matches the global forced masked rollout at
-    f64 roundoff. Wind rides q-halo constant slabs; the level masks travel
-    as compressed int32 index planes like the single-chip tiled kernel."""
-    from mpas_ocean_tpu.mesh.cull import cull_cells
-    from mpas_ocean_tpu.models.forcing import make_forcing
-    from mpas_ocean_tpu.structured import StructuredModel
+    f64 roundoff. Wind and level masks ride q-halo constant slabs."""
+    from mpas_ocean.mesh.cull import cull_cells
+    from mpas_ocean.models.forcing import make_forcing
+    from mpas_ocean.structured import StructuredModel
 
     dc = 1000.0
     horz = planar_hex_mesh(NX, NY, dc, f0=1e-4)
@@ -277,7 +273,7 @@ def test_sharded_pallas_masked_forced():
     ref = structured_run_loop(st, sm.struct_mesh, 10.0, n, forcing=sf)
     ssm = ShardedStructuredModel(sm.struct_mesh, devices=jax.devices()[:2])
     out = ssm.gather(
-        ssm.run_pallas(ssm.scatter(st), 10.0, n, q=3, forcing=sf)
+        ssm.run_superstep(ssm.scatter(st), 10.0, n, q=3, forcing=sf)
     )
     np.testing.assert_allclose(
         np.asarray(out.normal_velocity),
@@ -293,11 +289,11 @@ def test_sharded_pallas_masked_forced():
 def test_sharded_pallas_tracers_strat(hex16):
     """Superstep path with two active tracers AND layered stratification:
     tracer planes ride the same q-row halos, the Montgomery matmul runs
-    per kernel window — matches the global rollout at f64 roundoff."""
-    from mpas_ocean_tpu.models.shallow_water import update_ssh
-    from mpas_ocean_tpu.models.stratification import make_stratification
-    from mpas_ocean_tpu.models.tracers import make_tracers
-    from mpas_ocean_tpu.structured import StructuredModel
+    per window step — matches the global rollout at f64 roundoff."""
+    from mpas_ocean.models.shallow_water import update_ssh
+    from mpas_ocean.models.stratification import make_stratification
+    from mpas_ocean.models.tracers import make_tracers
+    from mpas_ocean.structured import StructuredModel
 
     vert = make_vertical_mesh(hex16, n_vert_levels=K)
     mesh = Mesh(horz=hex16, vert=vert).to_device()
@@ -327,7 +323,7 @@ def test_sharded_pallas_tracers_strat(hex16):
     )
     ssm = ShardedStructuredModel(sm.struct_mesh, devices=jax.devices()[:4])
     out = ssm.gather(
-        ssm.run_pallas(
+        ssm.run_superstep(
             ssm.scatter(st), 10.0, n, q=2, tracer_kappa=5.0, strat=strat
         )
     )
@@ -346,11 +342,11 @@ def test_sharded_pallas_tracers_strat(hex16):
 def test_sharded_pallas_nonlinear_matches_global(setup, n_devices, q):
     """Superstep path with the NONLINEAR vector-invariant step: one
     ppermute pair of 2q halo rows (the PV-flux stencil reaches 2 rows per
-    step, recomputed locally in-kernel), then q fused steps per tile —
-    must match the global nonlinear roll rollout at f64 roundoff."""
+    step, recomputed locally), then q steps — must match the global
+    nonlinear roll rollout at f64 roundoff."""
     sm, st = setup
     # deeper water for a stable nonlinear perturbation
-    from mpas_ocean_tpu.structured.model import StructState
+    from mpas_ocean.structured.model import StructState
 
     h = st.layer_thickness + 90.0
     st = StructState(
@@ -364,12 +360,12 @@ def test_sharded_pallas_nonlinear_matches_global(setup, n_devices, q):
         # 8 devices on ny2=8 leaves one row per device: the 2-row nonlinear
         # reach cannot be covered by a one-neighbor halo exchange
         with pytest.raises(ValueError, match="rows per device"):
-            ssm.run_pallas(ssm.scatter(st), 5.0, 6, nonlinear=True)
+            ssm.run_superstep(ssm.scatter(st), 5.0, 6, nonlinear=True)
         return
     n = 6
     ref = structured_run_loop(st, sm.struct_mesh, 5.0, n, nonlinear=True)
     out = ssm.gather(
-        ssm.run_pallas(ssm.scatter(st), 5.0, n, q=q, nonlinear=True)
+        ssm.run_superstep(ssm.scatter(st), 5.0, n, q=q, nonlinear=True)
     )
     np.testing.assert_allclose(
         np.asarray(out.ssh), np.asarray(ref.ssh), rtol=0, atol=1e-11
@@ -391,7 +387,9 @@ def test_sharded_pallas_forward_backward_matches_global(setup, n_devices, q):
     ssm = ShardedStructuredModel(
         sm.struct_mesh, devices=jax.devices()[:n_devices]
     )
-    out = ssm.gather(ssm.run_pallas(ssm.scatter(st), 10.0, n, q=q, fb=True))
+    out = ssm.gather(
+        ssm.run_superstep(ssm.scatter(st), 10.0, n, q=q, fb=True)
+    )
     np.testing.assert_allclose(
         np.asarray(out.ssh), np.asarray(ref.ssh), rtol=0, atol=1e-12
     )
@@ -409,7 +407,7 @@ def test_sharded_pallas_nonlinear_fb_matches_global(setup, n_devices, q):
     fresh-thickness pressure on top of the locally recomputed derived
     fields) — the last stepper x physics combination, previously fenced."""
     sm, st = setup
-    from mpas_ocean_tpu.structured.model import StructState
+    from mpas_ocean.structured.model import StructState
 
     h = st.layer_thickness + 90.0
     st = StructState(
@@ -423,7 +421,8 @@ def test_sharded_pallas_nonlinear_fb_matches_global(setup, n_devices, q):
         sm.struct_mesh, devices=jax.devices()[:n_devices]
     )
     out = ssm.gather(
-        ssm.run_pallas(ssm.scatter(st), 5.0, n, q=q, nonlinear=True, fb=True)
+        ssm.run_superstep(ssm.scatter(st), 5.0, n, q=q, nonlinear=True,
+                          fb=True)
     )
     np.testing.assert_allclose(
         np.asarray(out.ssh), np.asarray(ref.ssh), rtol=0, atol=1e-11
@@ -438,12 +437,11 @@ def test_sharded_pallas_nonlinear_fb_matches_global(setup, n_devices, q):
 
 def test_sharded_pallas_warns_on_reduced_q(setup):
     """An explicitly requested superstep q that cannot be honored
-    (indivisible n_steps / halo limit / VMEM fit) must warn, not silently
-    shrink."""
+    (indivisible n_steps / halo limit) must warn, not silently shrink."""
     sm, st = setup
     ssm = ShardedStructuredModel(sm.struct_mesh, devices=jax.devices()[:2])
     with pytest.warns(UserWarning, match="reduced the requested superstep"):
-        ssm.run_pallas(ssm.scatter(st), 10.0, 6, q=4)  # 4 does not divide 6
+        ssm.run_superstep(ssm.scatter(st), 10.0, 6, q=4)  # 4 does not divide 6
 
 
 @pytest.mark.parametrize("nonlinear", [False, True])
@@ -454,7 +452,7 @@ def test_sharded_objective_grad_matches_global(setup, nonlinear):
     gradient at f64 roundoff. `gather` of the gradient dict reassembles the
     global gradient because the input halo rows carry zero cotangent."""
     sm, st = setup
-    from mpas_ocean_tpu.structured.model import StructState
+    from mpas_ocean.structured.model import StructState
 
     if nonlinear:
         h = st.layer_thickness + 90.0
@@ -494,7 +492,7 @@ def test_sharded_slab_fb_matches_global(setup, n_devices, nonlinear):
     fresh-thickness exchange round — both must match the global roll
     rollout at f64 roundoff."""
     sm, st = setup
-    from mpas_ocean_tpu.structured.model import StructState
+    from mpas_ocean.structured.model import StructState
 
     if nonlinear:
         h = st.layer_thickness + 90.0
@@ -548,13 +546,12 @@ def test_sharded_slab_fb_objective_grad(setup):
 
 @pytest.mark.parametrize("kw", [{}, {"nonlinear": True}, {"fb": True}])
 def test_sharded_objective_pallas_grad_matches_global(setup, kw):
-    """Differentiable communication-avoiding superstep: the primal runs
-    the fused Pallas tile kernel, the custom-VJP backward reverses the
-    equal-math pure-jnp window rollout — jax.grad must match the global
-    rollout's gradient at f64 roundoff for linear, nonlinear and
+    """Differentiable communication-avoiding superstep (checkpointed over
+    supersteps, ppermute transposed to ppermute) — jax.grad must match the
+    global rollout's gradient at f64 roundoff for linear, nonlinear and
     forward-backward dynamics."""
     sm, st = setup
-    from mpas_ocean_tpu.structured.model import StructState
+    from mpas_ocean.structured.model import StructState
 
     if kw.get("nonlinear"):
         h = st.layer_thickness + 90.0
@@ -572,10 +569,10 @@ def test_sharded_objective_pallas_grad_matches_global(setup, kw):
     oref = gobj(st)
     ssm = ShardedStructuredModel(sm.struct_mesh, devices=jax.devices()[:2])
     local = ssm.scatter(st)
-    o = ssm.objective_pallas(local, dt, n, q=2, **kw)
+    o = ssm.objective_superstep(local, dt, n, q=2, **kw)
     np.testing.assert_allclose(float(o), float(oref), rtol=1e-12)
     g = jax.grad(
-        lambda l: ssm.objective_pallas(l, dt, n, q=2, **kw)
+        lambda l: ssm.objective_superstep(l, dt, n, q=2, **kw)
     )(local)
     gg = ssm.gather(g)
     for name in ("ssh", "layer_thickness", "normal_velocity"):
@@ -591,9 +588,9 @@ def test_sharded_objective_forcing_gradient():
     gathered cotangent (gather_forcing_grad) matches the global rollout's
     Forcing cotangent at f64 roundoff — wind plane, BOTH level masks, and
     the three scalar coefficients (summed across devices)."""
-    from mpas_ocean_tpu.mesh.cull import cull_cells
-    from mpas_ocean_tpu.models.forcing import make_forcing
-    from mpas_ocean_tpu.models.shallow_water import update_ssh
+    from mpas_ocean.mesh.cull import cull_cells
+    from mpas_ocean.models.forcing import make_forcing
+    from mpas_ocean.models.shallow_water import update_ssh
 
     nx, Kl = 16, 2
     dc = 1000.0
@@ -651,21 +648,84 @@ def test_sharded_objective_forcing_gradient():
         )
 
 
-def test_tiled_traced_dt(setup):
-    """dt is a RUNTIME operand of the tiled kernel (it arrives as a tracer
-    when pallas_rollout_diff is differentiated under jit, where it is a
-    custom-VJP differentiable input) — a traced-dt tiled rollout must
-    trace/run and match the concrete-dt one exactly."""
-    from mpas_ocean_tpu.structured.pallas_model import pallas_tiled_run_loop
+@pytest.mark.parametrize(
+    "config", ["tracers", "strat", "forced_nonlinear", "masked_nonlinear_fb",
+               "forced_fb"],
+)
+def test_superstep_subsystems(config):
+    """The superstep covers every subsystem the slab `run` covers, one
+    configuration at a time (tracers alone, stratification alone, forcing
+    with nonlinear dynamics, wall-masked nonlinear forward-backward at
+    reach 3, forced forward-backward) — each equal to the global rollout
+    at f64 roundoff, and its objective's gradient equal to the global
+    gradient."""
+    from mpas_ocean.mesh.cull import cull_cells
+    from mpas_ocean.models.forcing import make_forcing
+    from mpas_ocean.models.shallow_water import update_ssh
+    from mpas_ocean.models.stratification import make_stratification
+    from mpas_ocean.models.tracers import make_tracers
 
-    sm, st = setup
-    smesh = sm.struct_mesh
-    ref = pallas_tiled_run_loop(st, smesh, 10.0, 4, row_tile=4,
-                                interpret=True, q=2)
-    out = jax.jit(
-        lambda t: pallas_tiled_run_loop(st, smesh, t, 4, row_tile=4,
-                                        interpret=True, q=2)
-    )(jnp.asarray(10.0))
-    for a, b in zip(jax.tree.leaves(out), jax.tree.leaves(ref)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0,
-                                   atol=1e-14)
+    dc = 1000.0
+    parent = planar_hex_mesh(NX, NY, dc, f0=1e-4)
+    keep, horz = None, parent
+    if "masked" in config or "forced" in config:
+        y = np.asarray(parent.cells.y)
+        keep = (y > 0.5 * dc) & (y < y.max() - 0.5 * dc)
+        horz = cull_cells(parent, keep)
+    depth = 100.0
+    vert = make_vertical_mesh(
+        horz, n_vert_levels=K,
+        resting_thickness=np.full((horz.n_cells, K), depth),
+    )
+    mesh = Mesh(horz=horz, vert=vert).to_device()
+    sm = (StructuredModel(mesh, NX, NY) if keep is None else
+          StructuredModel(mesh, NX, NY, parent_horz=parent, keep_cells=keep))
+    rng = np.random.default_rng(12)
+    h = depth + 0.05 * rng.normal(size=(horz.n_cells, K))
+    u = 0.01 * rng.normal(size=(horz.n_edges, K))
+    u *= np.asarray(horz.edges.edge_mask)[:, None]
+    prog = PrognosticVars(
+        ssh=update_ssh(jnp.asarray(h), mesh),
+        layer_thickness=jnp.asarray(h),
+        normal_velocity=jnp.asarray(u),
+    )
+    kw = {"nonlinear": "nonlinear" in config, "fb": config.endswith("_fb")}
+    if config == "tracers":
+        x = np.asarray(horz.cells.x)
+        prog = prog.replace(tracers=make_tracers(
+            mesh, [10.0 + np.sin(2 * np.pi * x / (x.max() + dc)),
+                   np.full(horz.n_cells, 35.0)]))
+        kw["tracer_kappa"] = 5.0
+    if config == "strat":
+        kw["strat"] = make_stratification([1024.0, 1025.5, 1026.0])
+    if "forced" in config:
+        kw["forcing"] = sm.to_struct_forcing(make_forcing(
+            mesh, wind_stress_zonal=0.1, bottom_drag_linear=1e-4,
+            bottom_drag_quadratic=2e-3, rayleigh=1e-5,
+        ))
+    st = sm.to_struct(prog)
+    n, dt = 4, 5.0
+    ref = structured_run_loop(st, sm.struct_mesh, dt, n, **kw)
+    ssm = ShardedStructuredModel(sm.struct_mesh, devices=jax.devices()[:2])
+    out = ssm.gather(ssm.run_superstep(ssm.scatter(st), dt, n, q=1, **kw))
+    for name in ("ssh", "layer_thickness", "normal_velocity", "tracers"):
+        a, b = getattr(out, name), getattr(ref, name)
+        if b is not None:
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0,
+                                       atol=1e-11)
+
+    def gobj(s):
+        return jnp.sum(structured_run_loop(s, sm.struct_mesh, dt, n,
+                                           **kw).ssh ** 2)
+
+    gref = jax.grad(gobj)(st)
+    local = ssm.scatter(st)
+    gg = ssm.gather(jax.grad(
+        lambda l: ssm.objective_superstep(l, dt, n, q=1, **kw)
+    )(local))
+    for name in ("ssh", "layer_thickness", "normal_velocity"):
+        b = np.asarray(getattr(gref, name))
+        np.testing.assert_allclose(
+            np.asarray(getattr(gg, name)), b, rtol=0,
+            atol=1e-10 * max(1.0, np.abs(b).max()),
+        )

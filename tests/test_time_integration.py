@@ -6,17 +6,17 @@ import jax
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.forward.run_loop import (
+from mpas_ocean.forward.run_loop import (
     ocn_run_loop,
     ocn_run_loop_with_outputs,
 )
-from mpas_ocean_tpu.forward.time_integration import (
+from mpas_ocean.forward.time_integration import (
     ForwardEuler,
     RungeKutta4,
     ocn_timestep,
 )
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-from mpas_ocean_tpu.verification.inertial_gravity_wave import InertialGravityWave
+from mpas_ocean.models.shallow_water import PrognosticVars
+from mpas_ocean.verification.inertial_gravity_wave import InertialGravityWave
 
 
 @pytest.fixture(scope="module")
@@ -127,13 +127,13 @@ def test_igw_spatial_convergence():
     the reference only spot-checks with fixed golden norms."""
     import jax.numpy as jnp
 
-    from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-    from mpas_ocean_tpu.forward.time_integration import RungeKutta4
-    from mpas_ocean_tpu.mesh import planar_hex_mesh
-    from mpas_ocean_tpu.mesh.mesh import Mesh
-    from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-    from mpas_ocean_tpu.models.shallow_water import PrognosticVars
-    from mpas_ocean_tpu.verification.inertial_gravity_wave import (
+    from mpas_ocean.forward.run_loop import ocn_run_loop
+    from mpas_ocean.forward.time_integration import RungeKutta4
+    from mpas_ocean.mesh import planar_hex_mesh
+    from mpas_ocean.mesh.mesh import Mesh
+    from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+    from mpas_ocean.models.shallow_water import PrognosticVars
+    from mpas_ocean.verification.inertial_gravity_wave import (
         InertialGravityWave,
     )
 

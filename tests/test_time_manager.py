@@ -5,9 +5,9 @@ schedule)."""
 from datetime import datetime, timedelta
 
 import pytest
-from dateutil.relativedelta import relativedelta
+from mpas_ocean.infra.time_manager import CalendarPeriod
 
-from mpas_ocean_tpu.infra.time_manager import (
+from mpas_ocean.infra.time_manager import (
     Clock,
     OneTimeAlarm,
     PeriodicAlarm,
@@ -62,7 +62,7 @@ def test_two_year_alarm_schedule():
 
     alarms = {
         "once": OneTimeAlarm("once", datetime(2000, 6, 1)),
-        "monthly": PeriodicAlarm("monthly", relativedelta(months=1), start),
+        "monthly": PeriodicAlarm("monthly", CalendarPeriod(months=1), start),
         "daily": PeriodicAlarm("daily", timedelta(days=1), start),
         "hourly": PeriodicAlarm("hourly", timedelta(hours=1), start),
     }

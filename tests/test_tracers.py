@@ -13,18 +13,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpas_ocean_tpu.forward.run_loop import ocn_run_loop
-from mpas_ocean_tpu.forward.time_integration import (
+from mpas_ocean.forward.run_loop import ocn_run_loop
+from mpas_ocean.forward.time_integration import (
     ForwardEuler,
     RungeKutta4,
     forward_euler_step,
 )
-from mpas_ocean_tpu.mesh import planar_hex_mesh
-from mpas_ocean_tpu.mesh.cull import cull_cells
-from mpas_ocean_tpu.mesh.mesh import Mesh
-from mpas_ocean_tpu.mesh.vert_mesh import make_vertical_mesh
-from mpas_ocean_tpu.models.shallow_water import PrognosticVars, update_ssh
-from mpas_ocean_tpu.models.tracers import make_tracers, total_tracer_content
+from mpas_ocean.mesh import planar_hex_mesh
+from mpas_ocean.mesh.cull import cull_cells
+from mpas_ocean.mesh.mesh import Mesh
+from mpas_ocean.mesh.vert_mesh import make_vertical_mesh
+from mpas_ocean.models.shallow_water import PrognosticVars, update_ssh
+from mpas_ocean.models.tracers import make_tracers, total_tracer_content
 
 K = 2
 DT = 50.0
@@ -112,7 +112,7 @@ def test_diffusion_dissipates_variance(tracer_setup):
 
 
 def test_matrix_path_parity(tracer_setup):
-    from mpas_ocean_tpu.models.matrix_model import MatrixModel, matrix_run_loop
+    from mpas_ocean.models.matrix_model import MatrixModel, matrix_run_loop
 
     mesh, prog = tracer_setup
     mm = MatrixModel.from_mesh(mesh, dtype=np.float64)
@@ -126,7 +126,7 @@ def test_matrix_path_parity(tracer_setup):
 
 
 def test_matrix_rk4_parity(tracer_setup):
-    from mpas_ocean_tpu.models.matrix_model import MatrixModel, matrix_run_loop
+    from mpas_ocean.models.matrix_model import MatrixModel, matrix_run_loop
 
     mesh, prog = tracer_setup
     mm = MatrixModel.from_mesh(mesh, dtype=np.float64)
@@ -138,7 +138,7 @@ def test_matrix_rk4_parity(tracer_setup):
 
 
 def test_roll_path_parity(tracer_setup):
-    from mpas_ocean_tpu.structured.model import StructuredModel
+    from mpas_ocean.structured.model import StructuredModel
 
     mesh, prog = tracer_setup
     sm = StructuredModel(mesh, 16, 16)
@@ -152,7 +152,7 @@ def test_roll_path_parity(tracer_setup):
 
 
 def test_roll_nonlinear_parity(tracer_setup):
-    from mpas_ocean_tpu.structured.model import StructuredModel
+    from mpas_ocean.structured.model import StructuredModel
 
     mesh, prog = tracer_setup
     sm = StructuredModel(mesh, 16, 16)
@@ -202,7 +202,7 @@ def test_channel_walls_leak_nothing(channel_setup):
 
 
 def test_channel_roll_parity(channel_setup, hex16):
-    from mpas_ocean_tpu.structured.model import StructuredModel
+    from mpas_ocean.structured.model import StructuredModel
 
     mesh, keep, prog = channel_setup
     sm = StructuredModel(mesh, 16, 16, parent_horz=hex16, keep_cells=keep)
@@ -214,7 +214,7 @@ def test_channel_roll_parity(channel_setup, hex16):
 
 
 def test_sharded_parity(tracer_setup):
-    from mpas_ocean_tpu.parallel.shard_step import ShardedModel
+    from mpas_ocean.parallel.shard_step import ShardedModel
 
     mesh, prog = tracer_setup
     sm = ShardedModel(mesh, devices=jax.devices())
@@ -229,8 +229,8 @@ def test_sharded_parity(tracer_setup):
 
 
 def test_structured_sharded_parity(tracer_setup):
-    from mpas_ocean_tpu.structured.model import StructuredModel
-    from mpas_ocean_tpu.structured.sharded import ShardedStructuredModel
+    from mpas_ocean.structured.model import StructuredModel
+    from mpas_ocean.structured.sharded import ShardedStructuredModel
 
     mesh, prog = tracer_setup
     sm = StructuredModel(mesh, 16, 16)
@@ -279,155 +279,15 @@ def test_tracer_gradient_vs_fd(tracer_setup):
         np.testing.assert_allclose(float(g[i, 0, 1]), fd, rtol=1e-6, atol=1e-10)
 
 
-def test_pallas_fused_parity(tracer_setup):
-    """The fused Pallas rollout advects tracers as extra VMEM parity planes
-    (interpret mode on CPU); matches the gather path at roundoff, linear
-    and nonlinear."""
-    from mpas_ocean_tpu.structured.model import StructuredModel
-    from mpas_ocean_tpu.structured.pallas_model import pallas_run_loop
-
-    mesh, prog = tracer_setup
-    sm = StructuredModel(mesh, 16, 16)
-    st = sm.to_struct(prog)
-    for nl in (False, True):
-        a = ocn_run_loop(prog, mesh, DT, 8, nonlinear=nl, tracer_kappa=5.0,
-                         tracer_upwind=0.7)
-        out = pallas_run_loop(st, sm.struct_mesh, DT, 8, interpret=True,
-                              nonlinear=nl, tracer_kappa=5.0,
-                              tracer_upwind=0.7)
-        b = sm.from_struct(out)
-        np.testing.assert_allclose(
-            np.asarray(a.tracers), np.asarray(b.tracers), atol=2e-10
-        )
-
-
-def test_pallas_fused_channel_parity(channel_setup, hex16):
-    from mpas_ocean_tpu.structured.model import StructuredModel
-    from mpas_ocean_tpu.structured.pallas_model import pallas_run_loop
-
-    mesh, keep, prog = channel_setup
-    sm = StructuredModel(mesh, 16, 16, parent_horz=hex16, keep_cells=keep)
-    a = ocn_run_loop(prog, mesh, DT, 8, tracer_kappa=5.0)
-    out = pallas_run_loop(sm.to_struct(prog), sm.struct_mesh, DT, 8,
-                          interpret=True, tracer_kappa=5.0)
-    b = sm.from_struct(out)
-    np.testing.assert_allclose(
-        np.asarray(a.tracers), np.asarray(b.tracers), atol=2e-10
-    )
-
-
-@pytest.mark.parametrize("q", [1, 2])
-def test_pallas_tiled_tracer_parity(tracer_setup, q):
-    """The HBM-streaming tiled kernel advects tracer plane groups with the
-    same q-row-halo temporal blocking as the state (interpret mode)."""
-    from mpas_ocean_tpu.structured.model import StructuredModel
-    from mpas_ocean_tpu.structured.pallas_model import pallas_tiled_run_loop
-
-    mesh, prog = tracer_setup
-    sm = StructuredModel(mesh, 16, 16)
-    st = sm.to_struct(prog)
-    ref = sm.run(st, DT, 8, tracer_kappa=5.0)
-    out = pallas_tiled_run_loop(
-        st, sm.struct_mesh, DT, 8, row_tile=4, interpret=True, q=q,
-        tracer_kappa=5.0,
-    )
-    np.testing.assert_allclose(
-        np.asarray(ref.tracers), np.asarray(out.tracers), atol=2e-10
-    )
-
-
-def test_pallas_tiled_channel_tracer_parity(channel_setup, hex16):
-    from mpas_ocean_tpu.structured.model import StructuredModel
-    from mpas_ocean_tpu.structured.pallas_model import pallas_tiled_run_loop
-
-    mesh, keep, prog = channel_setup
-    sm = StructuredModel(mesh, 16, 16, parent_horz=hex16, keep_cells=keep)
-    st = sm.to_struct(prog)
-    ref = sm.run(st, DT, 8, tracer_kappa=5.0)
-    out = pallas_tiled_run_loop(
-        st, sm.struct_mesh, DT, 8, row_tile=4, interpret=True, q=2,
-        tracer_kappa=5.0,
-    )
-    np.testing.assert_allclose(
-        np.asarray(ref.tracers), np.asarray(out.tracers), atol=2e-10
-    )
-
-
-def test_pallas_adjoint_segments_with_tracers(tracer_setup):
-    """The fused adjoint-segment kernels reverse the tracer planes too
-    (in-kernel jax.vjp of the extended step); matches the roll-model VJP."""
-    from mpas_ocean_tpu.structured.model import StructuredModel
-    from mpas_ocean_tpu.structured.pallas_model import (
-        _checkpointed_roll_rollout,
-        pallas_adjoint_rollout,
-    )
-
-    mesh, prog = tracer_setup
-    sm = StructuredModel(mesh, 16, 16)
-    st = sm.to_struct(prog)
-    n = 6
-
-    def roll_obj(s):
-        out = _checkpointed_roll_rollout(
-            s, sm.struct_mesh, DT, n, tracer_kappa=5.0, tracer_upwind=1.0
-        )
-        return jnp.sum(out.tracers ** 2) + jnp.sum(out.ssh ** 2)
-
-    g_ref = jax.grad(roll_obj)(st)
-    out = _checkpointed_roll_rollout(
-        st, sm.struct_mesh, DT, n, tracer_kappa=5.0, tracer_upwind=1.0
-    )
-    g_out = out.replace(
-        ssh=2 * out.ssh,
-        layer_thickness=jnp.zeros_like(out.layer_thickness),
-        normal_velocity=jnp.zeros_like(out.normal_velocity),
-        tracers=2 * out.tracers,
-    )
-    d_state, _ = pallas_adjoint_rollout(
-        st, sm.struct_mesh, DT, n, g_out, plan=(2, 3), interpret=True,
-        tracer_kappa=5.0, tracer_upwind=1.0,
-    )
-    for name in ("ssh", "layer_thickness", "normal_velocity", "tracers"):
-        a = np.asarray(getattr(g_ref, name))
-        b = np.asarray(getattr(d_state, name))
-        np.testing.assert_allclose(b, a, atol=1e-10 * max(1.0, np.abs(a).max()))
-
-
-def test_pallas_step_grad_with_tracers(tracer_setup):
-    from mpas_ocean_tpu.structured.model import StructuredModel, structured_step
-    from mpas_ocean_tpu.structured.pallas_model import pallas_step
-
-    mesh, prog = tracer_setup
-    sm = StructuredModel(mesh, 16, 16)
-    st = sm.to_struct(prog)
-
-    def f_pallas(s):
-        out = pallas_step(s, sm.struct_mesh, DT, 5.0, 1.0)
-        return jnp.sum(out.tracers ** 2)
-
-    def f_roll(s):
-        out = structured_step(s, sm.struct_mesh, DT, tracer_kappa=5.0,
-                              tracer_upwind=1.0)
-        return jnp.sum(out.tracers ** 2)
-
-    ga = jax.grad(f_pallas)(st)
-    gb = jax.grad(f_roll)(st)
-    for name in ("ssh", "layer_thickness", "normal_velocity", "tracers"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(ga, name)), np.asarray(getattr(gb, name)),
-            atol=1e-11,
-        )
-
-
 def test_driver_tracer_config(tmp_path):
     """Config-driven tracers end to end: namelist `tracer_transport` section
     -> initial T/S read from the input stream -> advected in the rollout ->
     written to the output stream; a restart continues them exactly."""
     import shutil
 
-    from mpas_ocean_tpu.forward.driver import ocn_run
-    from mpas_ocean_tpu.infra.netcdf import read_netcdf
-    from mpas_ocean_tpu.tools import make_igw_case
+    from mpas_ocean.forward.driver import ocn_run
+    from mpas_ocean.infra.netcdf import read_netcdf
+    from mpas_ocean.tools import make_igw_case
 
     case = tmp_path / "tracer_case"
     cfg = make_igw_case(case, nx=16, resolution_km=200.0,
@@ -467,9 +327,9 @@ def test_driver_tracer_config(tmp_path):
 
 
 def test_driver_ad_writes_tracer_shadows(tmp_path):
-    from mpas_ocean_tpu.forward.driver import ocn_run_with_ad
-    from mpas_ocean_tpu.infra.netcdf import read_netcdf
-    from mpas_ocean_tpu.tools import make_igw_case
+    from mpas_ocean.forward.driver import ocn_run_with_ad
+    from mpas_ocean.infra.netcdf import read_netcdf
+    from mpas_ocean.tools import make_igw_case
 
     case = tmp_path / "tracer_ad_case"
     cfg = make_igw_case(case, nx=16, resolution_km=200.0,
@@ -512,8 +372,8 @@ def test_monitor_with_vector_tracer_metric(tracer_setup, tmp_path):
     float() on the vector crashed the monitor at end of run)."""
     import json
 
-    from mpas_ocean_tpu.forward.run_loop import ocn_run_loop_with_monitor
-    from mpas_ocean_tpu.infra.monitor import check_health, write_jsonl
+    from mpas_ocean.forward.run_loop import ocn_run_loop_with_monitor
+    from mpas_ocean.infra.monitor import check_health, write_jsonl
 
     mesh, prog = tracer_setup
     _, series = ocn_run_loop_with_monitor(prog, mesh, DT, 6, 3)
@@ -532,7 +392,7 @@ def test_monitor_with_vector_tracer_metric(tracer_setup, tmp_path):
 def test_monitor_reports_total_blowup():
     """A series that is NaN from the first sample must be reported (review
     finding: the all-NaN skip meant a full blow-up looked healthy)."""
-    from mpas_ocean_tpu.infra.monitor import check_health
+    from mpas_ocean.infra.monitor import check_health
 
     series = {
         "volume": np.array([np.nan, np.nan]),
